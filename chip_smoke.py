@@ -9,19 +9,33 @@ Phases:
   2. The deposit kernel against its plain torch version on the card: random
      symbol streams (33- and 64-bit values, masked and odd columns, the
      word-budget clamp, a row too large for shared memory) and the real
-     stream of one 1024-frame batch of config 1. Words must be equal; both
-     are timed with CUDA events.
-  3. The 17 pinned corpus streams of tests/vectors/corpus (every case that
-     is neither LPC nor 32-bit) encoded on the card, byte for byte.
+     streams of one 1024-frame batch each of config 1, of config 3 (LPC
+     coefficient symbols), of the 32-bit input (33-bit side samples) and of
+     32-bit white noise at the exact tier (73 KB rows, the kernel's
+     global-memory branch). Words must be equal; each is timed with CUDA
+     events, and config 1's batch, timed again in turns with the plain
+     version, gives the kernel's times and bound.
+  3. All 22 pinned corpus streams of tests/vectors/corpus (fixed and LPC,
+     depths 8 to 32) encoded on the card, byte for byte.
   4. Config 1 at full size: 285 s of 16-bit/44.1 kHz stereo (bench.py's
-     recipe, seed 0xBEEF) must give the pinned FLAC bytes, and the deposit
-     kernel must be what packed them. Prints the warm wall time, x-realtime,
-     peak device memory, the per-stage CUDA-event times the pipeline records
-     (utils/stages.py) and the device's busy time under torch.profiler.
+     recipe, seed 0xBEEF) must give the pinned FLAC bytes. Prints the warm
+     wall time, x-realtime, peak device memory, the per-stage CUDA-event
+     times the pipeline records (utils/stages.py) and the device's busy time
+     under torch.profiler.
+  5. Config 3 at full size: bench.py's config-3 input (1024 frames, LPC)
+     and then the 285 s input with LPC must give their pinned bytes. Prints
+     the warm wall time, x-realtime, the stage times, and the LPC pieces of
+     one batch's analysis (lag sums, Levinson, residuals, Rice estimate).
+  6. Depth 32: bench.py's 32-bit input with fixed and with LPC prediction
+     must give the pinned bytes; a batch of 32-bit white noise overflows
+     tier 0, re-encodes at the exact tier through the kernel's
+     global-memory branch and must equal the port's bytes on the CPU.
 
-Any failure raises, so the exit code is not 0. The last line is one JSON
-object naming the card; the line before it lists each kernel's launches,
-error against its plain version and times.
+Every encode path of phases 3-6 runs with the kernel's counts set to 0 just
+before it and read just after: it must have launched the kernel and never
+called the plain version. Any failure raises, so the exit code is not 0.
+The last line is one JSON object naming the card; the line before it lists
+each kernel's launches, error against its plain version, times and bound.
 """
 
 import hashlib
@@ -31,16 +45,57 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MANIFEST = os.path.join(ROOT, "tests", "vectors", "corpus", "manifest.json")
 
+RATE = 44100
+BLOCK = 4096
 CONFIG1_SECONDS = 285
 CONFIG1_WAV_SHA = "8cd5bf65e8eba271a47d4c29b5bd743b4fa3d975b7d27cf50e05c5a93d5905aa"
 CONFIG1_FLAC_SHA = "a7532b4007129ac7493a86029b4144fe89977a742580be8c6a1fc244ecb227f7"
 CONFIG1_FLAC_BYTES = 31_404_217
+CONFIG1_LPC_FLAC_SHA = "d2590d930d0f84e1f395758cf00cdf5876e27fc3fbc7c78c649398b042cc4970"
+CONFIG1_LPC_FLAC_BYTES = 29_785_722
+CONFIG3_SAMPLES = 1024 * BLOCK
+CONFIG3_WAV_SHA = "90df0cb39e47ec5b9de53ff042da21eb929a6adc20b950785b488214eaa7df51"
+CONFIG3_FLAC_SHA = "1d7809cff19abf1ce02f6b95d1056d88e0dc737d9f1ab26d1cde2e61d86aee3a"
+CONFIG3_FLAC_BYTES = 9_939_659
+DEPTH32_SAMPLES = 1024 * BLOCK + 1000
+DEPTH32_WAV_SHA = "e0f0b1b00e745d4e4454bd1170cf0148ace5465ea5f7143c975e01498f8f9154"
+DEPTH32_FLAC = {  # prediction -> (bytes, sha256)
+    "fixed": (27_263_601, "b1ea46f368432399c7886c158c5ba4b377e4a6cbdfa28907be7da8c486956e56"),
+    "lpc": (26_723_366, "46f5c76620ba637e5ca0a0614e7ab07a31234cac035339057c48a8b31f271e24"),
+}
+NOISE32_FRAMES = 64
+
+# H100 SXM data sheet: HBM rate
+HBM_BYTES_PER_S = 3.35e12
+# H100 SXM INT32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+# (Hopper architecture whitepaper); the deposit's operations are integer
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# INT32 operations per symbol in csrc/deposit_bits.cuh: each 64-bit add,
+# compare or shift is two to four INT32 operations; the split (start bit,
+# value mask, three window words of a 64-bit shift and select) is ~35, the
+# three word pieces' bound checks, addresses and ors ~27, the loads and the
+# loop ~10
+DEPOSIT_INT32_OPS_PER_SYMBOL = 72
+
+
+def deposit_bound(n_frames: int, n_sym: int, max_words: int):
+    """(bytes, ms, bound_by, ops_ms): the least time the card could take
+    for one deposit, the larger of the bytes (each input read once: i32
+    end bit, i64 value, i32 width per symbol; each output word written
+    once) over the HBM rate and the INT32 operations over the INT32 rate
+    (``ops_ms``)."""
+    nbytes = 16 * n_sym + 4 * n_frames * max_words
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = DEPOSIT_INT32_OPS_PER_SYMBOL * n_sym / INT32_OPS_PER_S
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return nbytes, max(t_bytes, t_ops) * 1e3, bound_by, t_ops * 1e3
 
 
 def _sha(b: bytes) -> str:
@@ -53,24 +108,23 @@ def _log(phase: str, **kv) -> None:
 
 # -- inputs -------------------------------------------------------------------
 
-def config1_wav(write_wav, seconds=CONFIG1_SECONDS, rate=44100, seed=0xBEEF) -> bytes:
-    """bench.py's make_wav_bytes recipe at 16 bits."""
+def bench_wav(write_wav, n, depth=16, rate=RATE, seed=0xBEEF) -> bytes:
+    """bench.py's make_wav_bytes recipe: two tones and noise, stereo."""
     rng = np.random.default_rng(seed)
-    n = int(seconds * rate)
     t = np.arange(n)
-    base = 9000 * np.sin(2 * np.pi * 440 * t / rate) + 3000 * np.sin(2 * np.pi * 97 * t / rate)
-    noise = rng.normal(0, 120, size=(2, n))
+    scale = 2.0 ** (depth - 16)
+    base = scale * (9000 * np.sin(2 * np.pi * 440 * t / rate)
+                    + 3000 * np.sin(2 * np.pi * 97 * t / rate))
+    noise = rng.normal(0, 120 * scale, size=(2, n))
     x = np.stack([base + noise[0], 0.8 * base + noise[1]])
-    samples = np.clip(np.round(x), -32768, 32767).astype(np.int64)
+    lim = float(1 << (depth - 1))
+    samples = np.clip(np.round(x), -lim, lim - 1).astype(np.int64)
     buf = io.BytesIO()
-    write_wav(buf, samples, rate, 16)
+    write_wav(buf, samples, rate, depth)
     return buf.getvalue()
 
 
-BLOCK = 4096
-
-# the corpus cases of tests/test_regression_corpus.py that are neither LPC
-# nor 32-bit, with their synthesis recipe
+# the cases of tests/test_regression_corpus.py with their synthesis recipe
 CORPUS = [
     dict(name="tonal_16_2", kind="tonal", depth=16, channels=2, n=2 * BLOCK + 1500, seed=1),
     dict(name="noise_16_2", kind="noise", depth=16, channels=2, n=BLOCK + 777, seed=2),
@@ -84,9 +138,17 @@ CORPUS = [
     dict(name="tonal_8_2", kind="tonal", depth=8, channels=2, n=BLOCK + 500, seed=6),
     dict(name="tonal_24_2", kind="tonal", depth=24, channels=2, n=BLOCK + 500, seed=7,
          rate=96000),
+    dict(name="noise_32_2", kind="noise", depth=32, channels=2, n=BLOCK + 200, seed=8),
+    dict(name="tonal_32_2", kind="tonal", depth=32, channels=2, n=BLOCK + 64, seed=9),
     dict(name="tonal_12_2", kind="tonal", depth=12, channels=2, n=BLOCK + 96, seed=19),
     dict(name="tonal_16_1", kind="tonal", depth=16, channels=1, n=BLOCK + 900, seed=10),
     dict(name="tonal_16_8", kind="tonal", depth=16, channels=8, n=BLOCK + 128, seed=11),
+    dict(name="lpc_tonal_16_2", kind="tonal", depth=16, channels=2, n=2 * BLOCK + 1500,
+         seed=1, lpc=True),
+    dict(name="lpc_speech_16_2", kind="speech", depth=16, channels=2, n=2 * BLOCK, seed=5,
+         lpc=True, order=12),
+    dict(name="lpc_tonal_24_2", kind="tonal", depth=24, channels=2, n=BLOCK + 500, seed=7,
+         lpc=True),
     dict(name="tiny_tail_16_2", kind="tonal", depth=16, channels=2, n=BLOCK + 63, seed=12),
     dict(name="exact_16_2", kind="tonal", depth=16, channels=2, n=2 * BLOCK, seed=13),
     dict(name="block1024_16_2", kind="tonal", depth=16, channels=2, n=3 * 1024 + 200,
@@ -181,13 +243,13 @@ def main() -> int:
 
     import zigflac_tpu_torch as zt
     from zigflac_tpu_torch.models import pipeline as pl
-    from zigflac_tpu_torch.ops import _build, bitpack, deposit
     from zigflac_tpu_torch.native import md5
-    from zigflac_tpu_torch.ops.analyze import argmin_first, argmin_last, plan_frames
+    from zigflac_tpu_torch.ops import _build, analyze, bitpack, deposit, lpc
     from zigflac_tpu_torch.utils import stages
     from zigflac_tpu_torch.wav import WavReader, write_wav
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # -- phase 1 --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -195,20 +257,38 @@ def main() -> int:
     _log("1", build_s=round(time.perf_counter() - t0, 3), nvcc_s=_build.BUILD_SECONDS,
          ptxas=_build.BUILD_LOG.strip().splitlines()[-4:])
 
+    # -- inputs ---------------------------------------------------------------
+    wav1 = bench_wav(write_wav, CONFIG1_SECONDS * RATE)
+    wav3 = bench_wav(write_wav, CONFIG3_SAMPLES)
+    wav32 = bench_wav(write_wav, DEPTH32_SAMPLES, depth=32)
+    for name, wav, sha in (("config 1", wav1, CONFIG1_WAV_SHA), ("config 3", wav3, CONFIG3_WAV_SHA),
+                           ("32-bit", wav32, DEPTH32_WAV_SHA)):
+        if _sha(wav) != sha:
+            raise AssertionError(f"{name} input synthesis drifted")
+    noise = np.random.default_rng(0x3232).integers(
+        -(1 << 31), 1 << 31, (2, NOISE32_FRAMES * BLOCK))
+    buf = io.BytesIO()
+    write_wav(buf, noise, RATE, 32)
+    wav_noise = buf.getvalue()
+    cfg1 = zt.EncoderConfig.default(2)
+    cfg_lpc = replace(cfg1, prediction="lpc")
+
     # -- phase 2: kernel against plain on the card ----------------------------
     rng = np.random.default_rng(0xF1AC)
     max_err = 0
 
     def compare(d_cum, val, nbv, max_words):
         nonlocal max_err
-        args = [torch.from_numpy(a).to(dev) for a in (d_cum, val, nbv)]
-        got = deposit.deposit_words(*args, max_words)
-        want = deposit.deposit_words_plain(*args, max_words)
+        got = deposit.deposit_words(d_cum, val, nbv, max_words)
+        want = deposit.deposit_words_plain(d_cum, val, nbv, max_words)
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         max_err = max(max_err, err)
         if err:
             raise AssertionError(f"deposit kernel != plain (max |diff| {err})")
+
+    def compare_np(d_cum, val, nbv, max_words):
+        compare(*[torch.from_numpy(a).to(dev) for a in (d_cum, val, nbv)], max_words)
 
     cases = [
         dict(n=3, s=200), dict(n=2, s=513), dict(n=1, s=64),
@@ -219,49 +299,115 @@ def main() -> int:
     ]
     for kw in cases:
         d_cum, val, nbv = _rand_stream(rng, **kw)
-        compare(d_cum, val, nbv, int(d_cum.max()) // 32 + 3)
+        compare_np(d_cum, val, nbv, int(d_cum.max()) // 32 + 3)
     d_cum, val, nbv = _rand_stream(rng, 2, 300)
-    compare(d_cum, val, nbv, int(d_cum.max()) // 32 // 2)  # word-budget clamp
+    compare_np(d_cum, val, nbv, int(d_cum.max()) // 32 // 2)  # word-budget clamp
     d_cum, val, nbv = _rand_stream(rng, 4, 20000, max_nbv=40, gap=12)
     big = int(d_cum.max()) // 32 + 3
-    if big * 4 <= 48 * 1024:
+    if big * 4 <= deposit.shared_row_bytes():
         raise AssertionError("the oversized-row case fits shared memory")
-    compare(d_cum, val, nbv, big)  # global-memory branch
+    compare_np(d_cum, val, nbv, big)  # global-memory branch
 
-    wav1 = config1_wav(write_wav)
-    if _sha(wav1) != CONFIG1_WAV_SHA:
-        raise AssertionError("config-1 input synthesis drifted")
-    reader = WavReader.from_bytes(wav1)
-    samples = reader.planar_samples()
-    cfg1 = zt.EncoderConfig.default(2)
-    frames = torch.from_numpy(
-        samples[:, : 1024 * BLOCK].reshape(2, 1024, BLOCK).transpose(1, 0, 2).copy()
-    ).to(dev)
-    fns = torch.arange(1024, device=dev)
-    hs, max_words, capb = pl.DevicePipeline(cfg1, 16, dev)._shape(2, BLOCK, 44100, 0, 1024)
-    plan = plan_frames(frames, 16, cfg1)
-    dep_cum, total_bits, dep_val, dep_nbv = bitpack.frame_symbol_stream(
-        plan, fns, hs, BLOCK, cfg1.max_rice_order
-    )
-    dc32, nbv32 = dep_cum.to(torch.int32), dep_nbv.to(torch.int32)
-    compare(dc32.cpu().numpy(), dep_val.cpu().numpy(), nbv32.cpu().numpy(), max_words)
+    def batch_stream(wav, cfg, tier):
+        """The symbol stream of a wav's first 1024 full frames, and the
+        word budget of capacity tier ``tier`` (None: the exact tier)."""
+        r = WavReader.from_bytes(wav)
+        s = r.planar_samples()
+        n = min(1024, s.shape[1] // BLOCK)
+        frames = torch.from_numpy(
+            s[:, : n * BLOCK].reshape(2, n, BLOCK).transpose(1, 0, 2).copy()).to(dev)
+        hs, max_words, _ = pl.DevicePipeline(cfg, r.bit_depth, dev)._shape(
+            2, BLOCK, RATE, tier, n)
+        plan = analyze.plan_frames(frames, r.bit_depth, cfg)
+        dep_cum, _, dep_val, dep_nbv = bitpack.frame_symbol_stream(
+            plan, torch.arange(n, device=dev), hs, BLOCK, cfg.max_rice_order,
+            analyze.lpc_order_of(cfg), cfg.lpc_precision)
+        return dep_cum.to(torch.int32), dep_val, dep_nbv.to(torch.int32), max_words, plan
+
+    streams = {}
+    for name, wav, cfg, tier in (("config1", wav1, cfg1, 0), ("config3", wav3, cfg_lpc, 0),
+                                 ("depth32_lpc", wav32, cfg_lpc, 0),
+                                 ("noise32_exact", wav_noise, cfg1, None)):
+        dc, dv, dn, mw, plan = batch_stream(wav, cfg, tier)
+        compare(dc, dv, dn, mw)
+        streams[name] = dict(
+            symbols=list(dc.shape), max_words=mw, max_value_bits=int(dn.max()),
+            lpc_subframes=int((plan.kind == 3).sum()),
+            bound_ms=deposit_bound(dc.shape[0], dc.numel(), mw)[1],
+            bound_ops_ms=deposit_bound(dc.shape[0], dc.numel(), mw)[3],
+            kernel_ms=cuda_ms(torch, lambda: deposit.deposit_words(dc, dv, dn, mw)),
+            plain_ms=cuda_ms(torch, lambda: deposit.deposit_words_plain(dc, dv, dn, mw), reps=5),
+        )
+        if name == "config1":
+            timed = (dc, dv, dn, mw)
+        del dc, dv, dn, plan
+    if streams["config3"]["lpc_subframes"] == 0:
+        raise AssertionError("config 3's batch has no LPC subframe")
+    if streams["depth32_lpc"]["max_value_bits"] < 33:
+        raise AssertionError("the 32-bit batch has no 33-bit side sample")
+    if streams["noise32_exact"]["max_words"] * 4 <= deposit.shared_row_bytes():
+        raise AssertionError("the exact-tier 32-bit rows fit shared memory")
+    dc32, dep_val, nbv32, max_words = timed
     run_kernel = lambda: deposit.deposit_words(dc32, dep_val, nbv32, max_words)
     run_plain = lambda: deposit.deposit_words_plain(dc32, dep_val, nbv32, max_words)
     plain_a, kern_a = cuda_ms(torch, run_plain), cuda_ms(torch, run_kernel)
     kern_b, plain_b = cuda_ms(torch, run_kernel), cuda_ms(torch, run_plain)
     kernel_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
-    _log("2", symbols=list(dep_cum.shape), max_words=max_words, max_abs_err=max_err,
-         kernel_ms=[kern_a, kern_b], plain_ms=[plain_a, plain_b])
+    bound_bytes, bound_ms, bound_by, bound_ops_ms = deposit_bound(
+        dc32.shape[0], dc32.numel(), max_words)
+    _log("2", streams=streams, max_abs_err=max_err, kernel_ms=[kern_a, kern_b],
+         plain_ms=[plain_a, plain_b], bound_bytes=bound_bytes, bound_ms=bound_ms,
+         bound_ops_ms=bound_ops_ms)
+    del timed, dc32, dep_val, nbv32
 
     # the port's first-min / last-min tie rules on the card
     ties = torch.tensor([[3, 1, 2], [1, 1, 5], [1, 0, 2]], device=dev)
-    if (argmin_first(ties).tolist(), argmin_last(ties).tolist()) != ([1, 2, 0], [2, 2, 2]):
+    if (analyze.argmin_first(ties).tolist(), analyze.argmin_last(ties).tolist()) != (
+            [1, 2, 0], [2, 2, 2]):
         raise AssertionError("argmin tie rule differs on the card")
-    del plan, dep_cum, dep_val, dep_nbv, dc32, nbv32, frames
+
+    # the CPU port's bytes for phase 6's noise batch, made before any counted path
+    noise_cpu = zt.encode_wav_bytes(wav_noise, device="cpu")
+
+    launches = {"total": 0, "global_rows": 0}
+
+    def counted(path, fn):
+        """Run one encode path with the counts at 0 before it; it must
+        launch the kernel and never call the plain version."""
+        deposit.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        k, g, p = deposit.KERNEL_LAUNCHES, deposit.GLOBAL_ROW_LAUNCHES, deposit.PLAIN_CALLS
+        if k == 0 or p != 0:
+            raise AssertionError(f"{path}: {k} kernel launches, {p} plain calls")
+        launches["total"] += k
+        launches["global_rows"] += g
+        return out, k, g
+
+    def check(path, flac, want_bytes, want_sha):
+        if len(flac) != want_bytes or _sha(flac) != want_sha:
+            raise AssertionError(f"{path}: {len(flac)} bytes, sha256 {_sha(flac)}")
+
+    def timed_encode(wav, cfg):
+        """Warm wall time of one encode, and its per-batch stage times."""
+        zt.encode_wav_bytes(wav, config=cfg, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flac = zt.encode_wav_bytes(wav, config=cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stages.EVENTS = []
+        zt.encode_wav_bytes(wav, config=cfg, device=dev)
+        torch.cuda.synchronize()
+        per_batch = stages.batch_ms(stages.EVENTS)
+        stages.EVENTS = None
+        return flac, wall, per_batch
+
+    def median_stages(per_batch):
+        full = per_batch[:-1] if len(per_batch) > 1 else per_batch
+        return {k: float(np.median([b[k] for b in full])) for k in full[0]}
 
     # -- phase 3: corpus byte identity on the card -----------------------------
-    from dataclasses import replace
-
     with open(MANIFEST) as f:
         manifest = json.load(f)["cases"]
     for case in CORPUS:
@@ -274,40 +420,32 @@ def main() -> int:
         cfg = zt.EncoderConfig.default(case["channels"])
         if case.get("block"):
             cfg = replace(cfg, block_size=case["block"])
-        flac = zt.encode_wav_bytes(wav, config=cfg, device=dev)
+        if case.get("lpc"):
+            cfg = replace(cfg, prediction="lpc", lpc_order=case.get("order", 8))
+        flac, _, _ = counted(case["name"], lambda: zt.encode_wav_bytes(wav, config=cfg, device=dev))
         if _sha(flac) != ent["flac_sha256"]:
             raise AssertionError(f"{case['name']}: FLAC differs from the pinned stream")
     _log("3", corpus_cases=len(CORPUS), identical=True)
 
     # -- phase 4: config 1 at full size ----------------------------------------
-    flac = zt.encode_wav_bytes(wav1, device=dev)  # warm-up, checked below too
+    zt.encode_wav_bytes(wav1, device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    deposit.reset_counts()
     t0 = time.perf_counter()
-    flac = zt.encode_wav_bytes(wav1, device=dev)
-    torch.cuda.synchronize()
+    (flac, k, _) = counted("config 1", lambda: zt.encode_wav_bytes(wav1, device=dev))
     wall = time.perf_counter() - t0
-    launches, plain_calls = deposit.KERNEL_LAUNCHES, deposit.PLAIN_CALLS
-    if len(flac) != CONFIG1_FLAC_BYTES or _sha(flac) != CONFIG1_FLAC_SHA:
-        raise AssertionError(f"config 1: {len(flac)} bytes, sha256 {_sha(flac)}")
-    if launches == 0 or plain_calls != 0:
-        raise AssertionError(f"deposit: {launches} kernel launches, {plain_calls} plain calls")
+    check("config 1", flac, CONFIG1_FLAC_BYTES, CONFIG1_FLAC_SHA)
     _log("4", flac_bytes=len(flac), ratio=len(flac) / len(wav1), wall_s=wall,
          x_realtime=CONFIG1_SECONDS / wall,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-         kernel_launches=launches, plain_calls=plain_calls)
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), kernel_launches=k, plain_calls=0)
 
-    # where the wall time goes: the pipeline's own per-stage CUDA events over
-    # one more encode (three full batches, then the tail) ...
+    # where the wall time goes: the pipeline's own per-stage CUDA events ...
     stages.EVENTS = []
     zt.encode_wav_bytes(wav1, device=dev)
     torch.cuda.synchronize()
     per_batch = stages.batch_ms(stages.EVENTS)
     stages.EVENTS = None
-    full = per_batch[:-1]
-    _log("4-stages", batches=len(per_batch),
-         full_batch_median_ms={k: float(np.median([b[k] for b in full])) for k in full[0]},
+    _log("4-stages", batches=len(per_batch), full_batch_median_ms=median_stages(per_batch),
          per_batch_ms=per_batch)
 
     # ... the host pieces alone, and the device's busy time over one more
@@ -345,16 +483,80 @@ def main() -> int:
          device_events=len(spans), device_busy_s=busy_s,
          device_idle_share=1 - busy_s / prof_wall,
          top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top])
+    del prof
+
+    # -- phase 5: config 3 (LPC) at full size ---------------------------------
+    (flac, wall, per_batch), k, _ = counted(
+        "config 3", lambda: timed_encode(wav3, cfg_lpc))
+    check("config 3", flac, CONFIG3_FLAC_BYTES, CONFIG3_FLAC_SHA)
+    seconds3 = CONFIG3_SAMPLES / RATE
+    _log("5", flac_bytes=len(flac), ratio=len(flac) / len(wav3), wall_s=wall,
+         x_realtime=seconds3 / wall, kernel_launches=k, stages_ms=per_batch)
+
+    # the LPC pieces of one config-3 batch's analysis, on its L/R/M/S planes
+    s3 = WavReader.from_bytes(wav3).planar_samples()
+    fr = torch.from_numpy(s3.reshape(2, 1024, BLOCK).copy()).to(dev).to(torch.int64)
+    planes = torch.stack([fr[0], fr[1], (fr[0] + fr[1]) >> 1, fr[0] - fr[1]]).to(torch.int32)
+    del fr
+    orders = lpc.lpc_candidate_orders(cfg_lpc.lpc_order)
+    lags = lpc.lag_sums(planes, cfg_lpc.lpc_order)
+    sel = lpc.select_lpc_candidate(lpc.fixed_point_levinson(lags, orders), BLOCK,
+                                   cfg_lpc.lpc_precision)
+    res, _ = lpc.lpc_residuals(planes, sel[1], sel[2], sel[0], cfg_lpc.lpc_order)
+
+    def fixed_part():
+        order, _ = analyze.best_fixed_order(planes, False)
+        r = analyze.residuals_for_order(planes, order)
+        return analyze.rice_estimate(r, order, BLOCK, 8, 14)
+
+    pieces = {
+        "fixed_order_residual_rice": cuda_ms(torch, fixed_part, reps=5),
+        "lpc_lag_sums": cuda_ms(torch, lambda: lpc.lag_sums(planes, cfg_lpc.lpc_order), reps=5),
+        "lpc_levinson_select": cuda_ms(torch, lambda: lpc.select_lpc_candidate(
+            lpc.fixed_point_levinson(lags, orders), BLOCK, cfg_lpc.lpc_precision), reps=5),
+        "lpc_residuals": cuda_ms(torch, lambda: lpc.lpc_residuals(
+            planes, sel[1], sel[2], sel[0], cfg_lpc.lpc_order), reps=5),
+        "lpc_rice": cuda_ms(torch, lambda: analyze.rice_estimate(
+            res, sel[0], BLOCK, 8, 14), reps=5),
+    }
+    _log("5-lpc-pieces", planes=list(planes.shape), ms=pieces)
+    del planes, lags, sel, res
+
+    (flac, wall, _), k, _ = counted("config 1 with LPC", lambda: timed_encode(wav1, cfg_lpc))
+    check("config 1 with LPC", flac, CONFIG1_LPC_FLAC_BYTES, CONFIG1_LPC_FLAC_SHA)
+    _log("5-285s", flac_bytes=len(flac), ratio=len(flac) / len(wav1), wall_s=wall,
+         x_realtime=CONFIG1_SECONDS / wall, kernel_launches=k)
+
+    # -- phase 6: depth 32 -----------------------------------------------------
+    seconds32 = DEPTH32_SAMPLES / RATE
+    for pred, (nbytes, sha) in DEPTH32_FLAC.items():
+        (flac, wall, per_batch), k, g = counted(
+            f"32-bit {pred}", lambda: timed_encode(wav32, replace(cfg1, prediction=pred)))
+        check(f"32-bit {pred}", flac, nbytes, sha)
+        _log("6", prediction=pred, flac_bytes=len(flac), ratio=len(flac) / len(wav32),
+             wall_s=wall, x_realtime=seconds32 / wall, kernel_launches=k,
+             global_row_launches=g, stages_ms=per_batch)
+    flac, k, g = counted("32-bit noise", lambda: zt.encode_wav_bytes(wav_noise, device=dev))
+    if flac != noise_cpu:
+        raise AssertionError("32-bit noise: the card's bytes differ from the CPU port's")
+    if g == 0:
+        raise AssertionError("32-bit noise never reached the exact tier's wide rows")
+    _log("6-noise", frames=NOISE32_FRAMES, flac_bytes=len(flac), equals_cpu=True,
+         kernel_launches=k, global_row_launches=g)
+    _log("end", wall_s=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [{
         "name": "deposit_words",
         "route": "cuda",
         "source": "zigflac_tpu_torch/csrc/deposit.cu",
         "replaces": "zigflac_tpu/ops/pallas_deposit.py:149",
-        "launches": launches,
+        "launches": launches["total"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

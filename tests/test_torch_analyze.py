@@ -20,7 +20,7 @@ from zigflac_tpu_torch.utils.config import EncoderConfig
 
 KINDS = ("silence", "constant", "sine", "noise", "alternating", "extreme", "mixed")
 PLAN_FIELDS = ("channels_code", "kind", "order", "method", "part_order", "sample_size",
-               "params", "planes", "residuals", "wasted")
+               "params", "planes", "residuals", "qcoeffs", "qshift", "wasted")
 
 
 @lru_cache(maxsize=None)
@@ -45,9 +45,9 @@ def _compare_plans(frames, depth, **fields):
         np.testing.assert_array_equal(
             getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name
         )
-    # fields the fixed path leaves at zero in the JAX plan, absent in the port's
-    assert not np.asarray(want.qcoeffs).any() and not np.asarray(want.qshift).any()
+    # the JAX plan's flag for its speculative sweep, which the port has not
     assert not bool(np.asarray(want.sweep_unsafe))
+    return got
 
 
 @pytest.mark.parametrize("depth", [8, 12, 16, 20, 24])
@@ -109,9 +109,80 @@ def test_argmin_tie_rules():
     assert tan.argmin_last(s).tolist() == [2, 2, 2]
 
 
-def test_out_of_scope_modes_raise():
-    frames = torch.zeros((1, 2, 64), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="LPC"):
-        tan.plan_frames(frames, 16, EncoderConfig(block_size=64, prediction="lpc"))
-    with pytest.raises(NotImplementedError, match="32-bit"):
-        tan.plan_frames(frames, 32, EncoderConfig(block_size=64))
+LPC_CASES = {
+    # id: (block, channels, depth, fields)
+    "stereo16_o8": (4096, 2, 16, dict(lpc_order=8)),
+    "stereo24_o32": (4096, 2, 24, dict(lpc_order=32)),
+    "mono16_o12_b1024_wasted": (1024, 1, 16, dict(lpc_order=12, channels=1, wasted_bits=True)),
+    "eight16_o1_b256": (256, 8, 16, dict(lpc_order=1, channels=8)),
+    "tail9_o8": (9, 2, 16, dict(lpc_order=8, channels=2)),
+    "tail40_o8_wasted": (40, 2, 24, dict(lpc_order=8, wasted_bits=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(LPC_CASES))
+def test_lpc_plan(rng, case):
+    """Every FrameWirePlan field with LPC prediction, qcoeffs and qshift
+    included; in every case some plane picks the LPC candidate."""
+    B, channels, depth, fields = LPC_CASES[case]
+    shift = 2 if fields.get("wasted_bits") else 0
+    plan = _compare_plans(_frames(rng, B, channels, depth, per_kind=1, shift=shift), depth,
+                          block_size=B, prediction="lpc", **fields)
+    assert (plan.kind == 3).any()
+
+
+def test_lpc_plan_largest_block(rng):
+    """LPC at the format's largest block, 65535 samples, with a quiet
+    negative-DC frame (small negative windowed samples, whose lag sums run
+    past 2^15 products) beside sine and noise frames."""
+    B = 65535
+    frames = _frames(rng, B, 2, 16, per_kind=1)[2:4]
+    quiet = (-4 + rng.integers(-2, 3, (1, 2, B))).astype(np.int32)
+    plan = _compare_plans(np.concatenate([frames, quiet]), 16, block_size=B,
+                          prediction="lpc", lpc_order=8)
+    assert (plan.kind[-1] == 3).any()
+
+
+def _depth32_frames(rng, B, shift=0):
+    """Full-scale 32-bit content: every kind of _frames, then L = -2^31
+    against R = 2^31 - 1 (a 33-bit side plane) constant and alternating, so
+    the side's differences leave int32."""
+    frames = _frames(rng, B, 2, 32, per_kind=1).astype(np.int64)
+    lo, hi = -(1 << 31), (1 << 31) - 1
+    alt = np.where(np.arange(B) % 2 == 0, lo, hi)
+    extra = np.stack([np.stack([np.full(B, lo), np.full(B, hi)]), np.stack([alt, alt[::-1]]),
+                      np.stack([alt, np.full(B, hi)])])
+    frames = np.concatenate([frames, extra]) >> shift << shift
+    return frames.astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "prediction,channels,wasted",
+    [("fixed", "stereo_auto", False), ("lpc", "stereo_auto", False),
+     ("fixed", 2, False), ("lpc", 2, True)],
+)
+def test_depth32_plan(rng, prediction, channels, wasted):
+    """Depth 32: L/R/M as int32 and the 33-bit side plane as int64, both
+    wide; the wire planes of stereo frames are int64."""
+    B = 1024
+    frames = _depth32_frames(rng, B, shift=3 if wasted else 0)
+    plan = _compare_plans(frames, 32, block_size=B, prediction=prediction,
+                          channels=channels, wasted_bits=wasted)
+    if channels == "stereo_auto":
+        assert plan.planes.dtype == torch.int64
+        assert (plan.sample_size == 33).any()  # a side channel on the wire
+
+
+@pytest.mark.parametrize("B", [4096, 256])
+def test_rice_estimate_lpc_orders(rng, B):
+    """The partition-order limit for every predictor order 0..32: orders
+    17-31 at these blocks allow partitions shorter than the order, whose
+    first partition is all warmup (size <= 0, sum 0)."""
+    order = np.arange(33).repeat(2)
+    res = rng.integers(-3000, 3000, (order.size, B)).astype(np.int32)
+    res[np.arange(B)[None, :] < order[:, None]] = 0
+    res[1::2] >>= 10  # quiet rows: sums below half the partition size
+    want = jax.jit(lambda r, o: jan.rice_estimate(r, o, B, 8, 30))(res, order.astype(np.int32))
+    got = tan.rice_estimate(torch.from_numpy(res), torch.from_numpy(order), B, 8, 30)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -95,15 +95,17 @@ def test_symbols_pack_crc(rng, B, channels, depth, fields, budget):
 
     plan = tan.plan_frames(torch.from_numpy(frames), depth, EncoderConfig(**fields))
     t_fns = torch.from_numpy(fns)
+    cfg = EncoderConfig(**fields)
     dep_cum, total_bits, val, nbv = tbp.frame_symbol_stream(
-        plan, t_fns, hstatic, B, EncoderConfig(**fields).max_rice_order
+        plan, t_fns, hstatic, B, cfg.max_rice_order, tan.lpc_order_of(cfg), cfg.lpc_precision
     )
     np.testing.assert_array_equal(dep_cum.numpy(), w_cum)
     np.testing.assert_array_equal(total_bits.numpy(), w_total)
     np.testing.assert_array_equal(nbv.numpy(), w_nbv)
     np.testing.assert_array_equal(val.numpy(), w_val.astype(np.int64))
 
-    words, tb = tbp.pack_frames(plan, t_fns, hstatic, B, 8, max_words)
+    words, tb = tbp.pack_frames(plan, t_fns, hstatic, B, 8, max_words, tan.lpc_order_of(cfg),
+                                cfg.lpc_precision)
     np.testing.assert_array_equal(words.numpy().view(np.uint32), w_words)
     byte_len = (tb + 7) >> 3
     crcs = tcrc16.crc16_words(words, byte_len)
@@ -114,6 +116,74 @@ def test_symbols_pack_crc(rng, B, channels, depth, fields, budget):
         be = words.numpy().view(np.uint32).astype(">u4")
         for i in range(n):
             assert crcs[i] == jcrc.crc16(be[i].tobytes()[: int(byte_len[i])])
+
+
+@lru_cache(maxsize=None)
+def _jax_pack_plan(B: int, depth: int, max_words: int, lpc_order: int, lpc_precision: int):
+    """The JAX symbol stream and segment-sum words of a given plan."""
+    hstatic = jhd.header_static(B, 44100, depth)
+    kw = dict(lpc_order=lpc_order, lpc_precision=lpc_precision)
+
+    def run(plan, fns):
+        dep_cum, total_bits, val_parts, nbv = jbp.frame_symbol_stream(
+            plan, fns, hstatic, B, 8, **kw)
+        val = jnp.concatenate([v.astype(jnp.uint64) for v in val_parts], axis=1)
+        words, _, _ = jbp.pack_frames(plan, fns, hstatic, B, 8, max_words, depth=depth, **kw)
+        return dep_cum, total_bits, val, nbv, words
+
+    return jax.jit(run)
+
+
+def _jax_plan_of(plan):
+    """The port's plan as the JAX package's FrameWirePlan, in its dtypes."""
+    f = {name: getattr(plan, name).numpy() for name in tan.FrameWirePlan._fields}
+    for name in f:
+        if name == "params":
+            f[name] = f[name].astype(np.uint8)
+        elif name != "planes" or f[name].dtype != np.int64:
+            f[name] = f[name].astype(np.int32)
+    return jan.FrameWirePlan(**f, sweep_unsafe=np.False_)
+
+
+@pytest.mark.parametrize(
+    "B,channels,depth,fields",
+    [
+        (4096, 2, 16, dict(prediction="lpc")),
+        (1024, 2, 24, dict(prediction="lpc", channels=2, lpc_order=32, lpc_precision=15,
+                           wasted_bits=True)),
+        (1024, 2, 32, dict(prediction="fixed")),
+        (1024, 2, 32, dict(prediction="lpc", lpc_order=12, wasted_bits=True)),
+    ],
+    ids=["lpc16", "lpc24_o32_indep", "fixed32", "lpc32"],
+)
+def test_symbols_and_words_lpc_depth32(rng, B, channels, depth, fields):
+    """LPC subframes (precision/shift and coefficient symbols, up to 32
+    warmup samples) and depth-32 frames (33-bit side samples): one plan
+    through the JAX package's symbol stream and segment-sum packer and
+    through the port's."""
+    cfg = EncoderConfig(block_size=B, **fields)
+    frames = _pcm(rng, B, channels, depth, shift=2 if cfg.wasted_bits else 0)
+    if depth == 32:  # a constant 33-bit side plane, a verbatim side plane
+        lo, hi = -(1 << 31), (1 << 31) - 1
+        extra = [[np.full(B, lo), np.full(B, hi)],
+                 [np.where(np.arange(B) % 2 == 0, lo, hi), rng.integers(lo, hi, B)]]
+        frames = np.concatenate([frames, np.array(extra, np.int64).astype(np.int32)])
+    fns = np.arange(len(frames), dtype=np.int64)
+    plan = tan.plan_frames(torch.from_numpy(frames), depth, cfg)
+    assert (plan.kind == (3 if cfg.prediction == "lpc" else 1)).any()
+    n_wire = plan.kind.shape[0]
+    max_words = tbp.max_frame_words(B, n_wire, depth)
+    lpc_order = tan.lpc_order_of(cfg)
+    want = [np.asarray(x) for x in _jax_pack_plan(B, depth, max_words, lpc_order,
+                                                  cfg.lpc_precision)(_jax_plan_of(plan), fns)]
+    hstatic = thd.header_static(B, 44100, depth)
+    t_fns = torch.from_numpy(fns)
+    got = tbp.frame_symbol_stream(plan, t_fns, hstatic, B, 8, lpc_order, cfg.lpc_precision)
+    for g, w in zip(got, want[:4]):
+        np.testing.assert_array_equal(g.numpy(), w.astype(np.int64))
+    words, _ = tbp.pack_frames(plan, t_fns, hstatic, B, 8, max_words, lpc_order=lpc_order,
+                               lpc_precision=cfg.lpc_precision)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want[4])
 
 
 @pytest.mark.parametrize("n,w_mult", [(4, 1), (16, 5), (64, 3)])
@@ -132,6 +202,7 @@ def test_compact_stream_aligned(rng, n, w_mult):
 
 @pytest.mark.parametrize("block,n_wire,depth,ratio", [
     (4096, 2, 16, None), (4096, 2, 16, 1.25), (37, 8, 24, None), (65535, 1, 8, 1.25),
+    (4096, 2, 32, None), (4096, 2, 32, 1.25),
 ])
 def test_max_frame_words(block, n_wire, depth, ratio):
     assert tbp.max_frame_words(block, n_wire, depth, ratio) == jbp.max_frame_words(

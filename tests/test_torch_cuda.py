@@ -79,6 +79,50 @@ def test_encode_on_card_equals_cpu(rng, channels, depth, block):
     assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
 
 
+@pytest.mark.parametrize(
+    "depth,fields",
+    [(16, dict(prediction="lpc")), (24, dict(prediction="lpc", lpc_order=32, channels=2)),
+     (32, dict(prediction="fixed")), (32, dict(prediction="lpc", wasted_bits=True))],
+    ids=["lpc16", "lpc24_o32_indep", "fixed32", "lpc32"],
+)
+def test_lpc_and_depth32_on_card_equal_cpu(rng, depth, fields):
+    wav = _wav(rng, 2 * 4096 + 777, 2, depth)
+    cfg = EncoderConfig(**fields)
+    deposit.reset_counts()
+    got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda")
+    assert deposit.KERNEL_LAUNCHES > 0 and deposit.PLAIN_CALLS == 0
+    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+
+
+def test_lpc_largest_block_on_card_equals_cpu(rng):
+    """LPC at the format's largest block, 65535 samples, on quiet
+    negative-DC content, whose lag sums run past 2^15 products."""
+    noise = -4 + rng.integers(-2, 3, (2, 65535 + 300))
+    buf = io.BytesIO()
+    write_wav(buf, noise, 44100, 16)
+    wav = buf.getvalue()
+    cfg = EncoderConfig(block_size=65535, prediction="lpc")
+    deposit.reset_counts()
+    got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda")
+    assert deposit.KERNEL_LAUNCHES > 0 and deposit.PLAIN_CALLS == 0
+    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+
+
+def test_depth32_exact_tier_on_card(rng, monkeypatch):
+    """A 32-bit batch forced past tier 0 re-encodes at the exact tier,
+    whose 73 KB rows take the kernel's global-memory branch."""
+    n = 2 * 4096 + 99
+    noise = rng.integers(-(1 << 31), 1 << 31, (2, n))
+    buf = io.BytesIO()
+    write_wav(buf, noise, 44100, 32)
+    wav = buf.getvalue()
+    want = zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu")
+    monkeypatch.setattr(pipeline, "CAPACITY_LADDER", ((0.05, 0.1), (1.15, None)))
+    deposit.reset_counts()
+    assert zigflac_tpu_torch.encode_wav_bytes(wav, device="cuda") == want
+    assert deposit.GLOBAL_ROW_LAUNCHES > 0 and deposit.PLAIN_CALLS == 0
+
+
 def test_capacity_ladder_on_card(rng, monkeypatch):
     """Tier 0 and tier 1 overflow, so the batch re-encodes on the exact
     words path; the bytes do not change."""

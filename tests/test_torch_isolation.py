@@ -20,6 +20,13 @@ PORT_MODULES = sorted(
 COPIES = ["crc.py", "metadata.py", "native.py", "wav.py", "utils/config.py"]
 
 
+def test_every_module_is_checked():
+    """The checks below cover every module of the port, the LPC module
+    included."""
+    assert {"zigflac_tpu_torch.ops.lpc", "zigflac_tpu_torch.ops.analyze",
+            "zigflac_tpu_torch.ops.deposit"} <= set(PORT_MODULES)
+
+
 def test_port_imports_without_jax():
     """In a fresh interpreter where jax cannot be imported, every module of
     the port imports, and none of them pulls in the JAX package."""

@@ -1,6 +1,7 @@
-"""The port's slice end to end: zigflac_tpu_torch.encode_wav_bytes on the
-CPU against the JAX package's device backend, the pinned regression corpus
-and the golden oracle's frames.
+"""The port end to end: zigflac_tpu_torch.encode_wav_bytes on the CPU
+against the JAX package's device backend, all 22 pinned regression corpus
+streams and the golden oracle's frames, for fixed and LPC prediction at
+every depth up to 32.
 
 Tolerance: exact equality of the FLAC bytes."""
 
@@ -25,8 +26,6 @@ from zigflac_tpu_torch.models import pipeline
 from zigflac_tpu_torch.models.encoder import Encoder
 from zigflac_tpu_torch.wav import WavReader, write_wav
 
-PORT_CASES = [c for c in CASES if not c.get("lpc") and c["depth"] != 32]
-
 
 def _wav(rng, n, channels, depth, kind="mixed", rate=44100):
     buf = io.BytesIO()
@@ -44,6 +43,23 @@ def test_equals_jax_device_backend(rng, n, channels, depth, block):
     want = zigflac_tpu.encode_wav_bytes(wav, config=JaxConfig(**fields), backend="device")
     got = zigflac_tpu_torch.encode_wav_bytes(wav, config=EncoderConfig(**fields), device="cpu")
     assert got == want
+
+
+@pytest.mark.parametrize(
+    "depth,fields",
+    [(16, dict(prediction="lpc")), (24, dict(prediction="lpc", lpc_order=12)),
+     (32, dict(prediction="fixed")), (32, dict(prediction="lpc"))],
+    ids=["lpc16", "lpc24", "fixed32", "lpc32"],
+)
+def test_lpc_and_depth32_equal_jax_device_backend(rng, depth, fields):
+    """The JAX device backend sweeps speculatively at tier 0; the port
+    sweeps once, exactly. A tail under 64 samples goes to the JAX
+    package's host oracle and through the port's device path."""
+    wav = _wav(rng, 2 * 1024 + 37, 2, depth)
+    cfg = dict(block_size=1024, **fields)
+    want = zigflac_tpu.encode_wav_bytes(wav, config=JaxConfig(**cfg), backend="device")
+    assert zigflac_tpu_torch.encode_wav_bytes(wav, config=EncoderConfig(**cfg),
+                                              device="cpu") == want
 
 
 def test_small_batches_equal_one_batch(rng):
@@ -68,7 +84,7 @@ def test_small_batches_equal_one_batch(rng):
     assert streams[0] == want
 
 
-@pytest.mark.parametrize("case", PORT_CASES, ids=[c["name"] for c in PORT_CASES])
+@pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
 def test_corpus_byte_identity(case):
     flac = zigflac_tpu_torch.encode_wav_bytes(
         _wav_bytes(case), config=EncoderConfig(**asdict(_case_config(case))), device="cpu"
@@ -99,6 +115,28 @@ def test_tail_equals_golden_frame(rem):
             assert sizes.tolist() == [len(want)]
 
 
+@pytest.mark.parametrize("rem", range(1, 41))
+def test_lpc_tail_equals_golden_frame(rem):
+    """LPC tails 1..40 at orders 8 and 32: a tail of at most max(4, order)
+    samples is constant or verbatim, a longer one may take an LPC
+    subframe; every one equals the golden oracle's frame."""
+    rng = np.random.default_rng(1000 + rem)
+    for channels, lpc_order in ((2, 8), (1, 8), (2, 32)):
+        cfg = dict(channels="stereo_auto" if channels == 2 else channels,
+                   prediction="lpc", lpc_order=lpc_order)
+        pipe = pipeline.DevicePipeline(EncoderConfig(**cfg), 16, "cpu")
+        info = StreamInfo(44100, channels, 16, rem, 4096, 4096)
+        jinfo = JaxStreamInfo(44100, channels, 16, rem, 4096, 4096)
+        for kind in ("mixed", "noise", "sine", "extreme", "constant"):
+            x = make_signal(rng, rem, channels=channels, kind=kind)
+            got, _ = pipe.encode_frames_stream(
+                np.zeros((0, channels, 4096), np.int32), 7, info, tail=x
+            )
+            want = golden.encode_frame([x[c] for c in range(channels)], 7, jinfo,
+                                       JaxConfig(**cfg))
+            assert got == want, (channels, lpc_order, kind)
+
+
 def test_encode_frames_splits_the_stream(rng):
     """encode_frames returns each full frame's bytes, each equal to the
     golden oracle's frame."""
@@ -123,6 +161,18 @@ def test_capacity_ladder_overflow_reencodes(rng, monkeypatch, ladder):
     assert zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu") == want
 
 
+def test_capacity_ladder_depth32_exact_tier(rng, monkeypatch):
+    """32-bit noise forced past tier 0 re-encodes at the exact tier, whose
+    rows (max_frame_words at depth 32) are the widest the packer sees."""
+    wav = _wav(rng, 2 * 1024 + 99, 2, 32, kind="noise")
+    cfg = EncoderConfig(block_size=1024)
+    want = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+    monkeypatch.setattr(pipeline, "CAPACITY_LADDER", ((0.05, 0.1), (1.15, None)))
+    assert zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu") == want
+    assert want == zigflac_tpu.encode_wav_bytes(wav, config=JaxConfig(block_size=1024),
+                                                backend="golden")
+
+
 def test_transfer_stats_are_per_pipeline(rng):
     wav = _wav(rng, 4096 + 5, 2, 16)
     reader = WavReader.from_bytes(wav)
@@ -140,13 +190,14 @@ def test_cuda_without_a_card_raises(monkeypatch):
         Encoder(EncoderConfig(), 16, "cuda")
 
 
-@pytest.mark.parametrize(
-    "fields,depth,what",
-    [(dict(prediction="lpc"), 16, "LPC"), ({}, 32, "32-bit")],
-)
-def test_out_of_scope_raises(fields, depth, what):
-    with pytest.raises(NotImplementedError, match=what):
-        Encoder(EncoderConfig(**fields), depth, "cpu")
+def test_default_device_is_the_card(rng, monkeypatch):
+    """Without a device argument both entry points take cuda, and without
+    a card they raise instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Encoder(EncoderConfig(prediction="lpc"), 32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        zigflac_tpu_torch.encode_wav_bytes(_wav(rng, 1000, 2, 16))
 
 
 def test_stage_marks_group_by_batch():

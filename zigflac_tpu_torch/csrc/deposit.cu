@@ -81,6 +81,10 @@ int zf_deposit_words(const void* d_cum, const void* val, const void* nbv, int64_
   return (int)cudaGetLastError();
 }
 
+// The largest row, in bytes, that the kernel builds in shared memory;
+// larger rows take the global-memory branch.
+int64_t zf_shared_row_bytes() { return kSharedRowBytes; }
+
 const char* zf_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -33,21 +33,17 @@ class Encoder:
     """FLAC stream encoder over planar int32 samples.
 
     Surface of the reference ``libFLAC.Encoder`` (libFLAC/Encoder.zig:55-419):
-    construct with a config, a bit depth and a device, then
-    ``encode_stream`` produces the complete FLAC byte stream (signature,
-    STREAMINFO, VorbisComment, frames).
+    construct with a config, a bit depth and a device (the card unless the
+    caller asks for the CPU), then ``encode_stream`` produces the complete
+    FLAC byte stream (signature, STREAMINFO, VorbisComment, frames).
     """
 
     def __init__(
         self,
         config: EncoderConfig,
         bit_depth: int,
-        device: torch.device,
+        device: torch.device = "cuda",
     ) -> None:
-        if config.prediction == "lpc":
-            raise NotImplementedError("LPC prediction: ROADMAP module queue item 8")
-        if bit_depth == 32:
-            raise NotImplementedError("32-bit depth: ROADMAP module queue item 9")
         self.config = config
         self.bit_depth = bit_depth
         self.pipeline = DevicePipeline(config, bit_depth, device)
@@ -111,14 +107,15 @@ def encode_wav_bytes(
     wav_bytes: bytes,
     config: Optional[EncoderConfig] = None,
     *,
-    device: torch.device,
+    device: torch.device = "cuda",
     tags: Optional[List] = None,
     seek_interval: Optional[int] = None,
     padding: int = 0,
     extra_metadata: Optional[List[bytes]] = None,
 ) -> bytes:
     """The wav2flac path: WAV bytes in, FLAC bytes out
-    (src/main.zig + src/wav2flac.zig), encoded on ``device``."""
+    (src/main.zig + src/wav2flac.zig), encoded on ``device`` (the card
+    unless the caller asks for the CPU; without a card, cuda raises)."""
     wav = WavReader.from_bytes(wav_bytes)
     cfg = config or EncoderConfig.default(wav.channels)
     info = wav.flac_streaminfo(cfg.block_size)

@@ -22,7 +22,7 @@ import torch
 
 from ..metadata import StreamInfo
 from ..native import assemble_frames, assemble_ranges
-from ..ops.analyze import plan_frames
+from ..ops.analyze import lpc_order_of, plan_frames
 from ..ops.bitpack import (
     ALIGN_W,
     compact_stream_aligned,
@@ -40,8 +40,8 @@ DEFAULT_BATCH = 1024
 # Ragged tails of every length encode on the device at their exact block
 # size. (The JAX package sends tails under 64 samples to its host oracle:
 # its symbol builder slices four warmup columns, which fails for 1-3
-# samples; this port slices min(B, 4), and a frame of B <= 4 samples is
-# always constant or verbatim.)
+# samples; this port slices min(B, max(4, lpc_order)), and a frame of
+# B <= max(4, lpc_order) samples is always constant or verbatim.)
 TAIL_DEVICE_MIN = 1
 
 # capacity ladder: (output-stream budget, per-frame word budget) as
@@ -81,7 +81,8 @@ def _encode_batch(
     plan = plan_frames(frames, depth, config)
     stages.mark("analysis")
     words, total_bits = pack_frames(
-        plan, frame_numbers, hstatic, block_size, config.max_rice_order, max_words
+        plan, frame_numbers, hstatic, block_size, config.max_rice_order, max_words,
+        lpc_order_of(config), config.lpc_precision,
     )
     crcs = crc16_words(words, (total_bits + 7) >> 3)
     return words, total_bits, crcs
@@ -142,7 +143,7 @@ class DevicePipeline:
         self,
         config: EncoderConfig,
         bit_depth: int,
-        device: torch.device,
+        device: torch.device = "cuda",
         batch_size: int = DEFAULT_BATCH,
     ) -> None:
         self.config = config

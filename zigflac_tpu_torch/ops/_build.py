@@ -67,6 +67,8 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.zf_deposit_words.restype = ctypes.c_int
+    lib.zf_shared_row_bytes.argtypes = []
+    lib.zf_shared_row_bytes.restype = ctypes.c_int64
     lib.zf_error_string.argtypes = [ctypes.c_int]
     lib.zf_error_string.restype = ctypes.c_char_p
     _lib = lib

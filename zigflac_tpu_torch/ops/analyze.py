@@ -1,8 +1,7 @@
 """Batched frame analysis on torch tensors: the encoder's decisions.
 
-Counterpart of ``zigflac_tpu/ops/analyze.py`` for the fixed-prediction
-path. Every per-frame hot loop of the reference runs as integer tensor ops
-over a batch of planes:
+Counterpart of ``zigflac_tpu/ops/analyze.py``. Every per-frame hot loop
+of the reference runs as integer tensor ops over a batch of planes:
 
 * fixed-predictor order search: five difference abs-sums and a first-min
   argmin (libFLAC/fixed.zig:88-168);
@@ -12,7 +11,13 @@ over a batch of planes:
   sweep under wrapping-u64 rules, smallest-param and largest-partition-order
   tie-breaks (libFLAC/rice.zig:237-375);
 * Constant/Verbatim/Fixed selection with strict ``<`` and the stereo-mode
-  first-min (libFLAC/Encoder.zig:248-376).
+  first-min (libFLAC/Encoder.zig:248-376);
+* the LPC candidate (``ops/lpc.py``, an extension: the reference stubs it),
+  which competes with the best fixed order on estimated bits plus its
+  coefficient overhead.
+
+Depth 32 runs wide: the 33-bit side plane is int64 and analyzed with
+``bits_of_t = 64``, as the reference's i64 side samples are.
 
 Integer policy: every unsigned quantity travels as int64 (torch has no
 uint32/uint64 arithmetic on the CPU). Sums of zigzags stay below 2^48, so
@@ -27,6 +32,7 @@ from typing import List, NamedTuple
 import torch
 
 from ..utils.config import EncoderConfig, MAX_FIXED_ORDER, MAX_RICE_PARAM_4BIT
+from . import lpc
 
 # stands in for u64::MAX: a disqualified candidate's cost
 I64_MAX = torch.iinfo(torch.int64).max
@@ -44,13 +50,17 @@ BINOM = (
 class PlaneAnalysis(NamedTuple):
     """Per-plane decisions; leading dims match the input's batch dims."""
 
-    kind: torch.Tensor        # i64: 0 constant, 1 verbatim, 2 fixed
+    kind: torch.Tensor        # i64: 0 constant, 1 verbatim, 2 fixed, 3 lpc
     est_bits: torch.Tensor    # i64: header-less size estimate
-    order: torch.Tensor       # i64: fixed predictor order 0..4
+    order: torch.Tensor       # i64: predictor order (fixed 0..4, lpc 1..32)
     method: torch.Tensor      # i64: 0 = 4-bit rice params, 1 = 5-bit
     part_order: torch.Tensor  # i64: rice partition order 0..8
     params: torch.Tensor      # i64 [..., 256]: rice param per partition
-    residuals: torch.Tensor   # i32 [..., B]: first ``order`` slots are 0
+    residuals: torch.Tensor   # i32 [..., B]: the LPC candidate's where
+                              # kind == 3, else the fixed order's; first
+                              # ``order`` slots are 0
+    qcoeffs: torch.Tensor     # i64 [..., 32]: quantized LPC coefficients
+    qshift: torch.Tensor      # i64: LPC coefficient shift
     wasted: torch.Tensor      # i64: shaved trailing zero bits (extension)
 
 
@@ -68,8 +78,11 @@ class FrameWirePlan(NamedTuple):
     part_order: torch.Tensor
     sample_size: torch.Tensor    # i64 [W, N]: depth (+1 for side) - wasted
     params: torch.Tensor         # i64 [W, N, 256]
-    planes: torch.Tensor         # i32 [W, N, B], wasted bits shaved
+    planes: torch.Tensor         # i32 [W, N, B] (i64 at depth 32 stereo),
+                                 # wasted bits shaved
     residuals: torch.Tensor      # i32 [W, N, B]
+    qcoeffs: torch.Tensor        # i64 [W, N, 32]
+    qshift: torch.Tensor         # i64 [W, N]
     wasted: torch.Tensor         # i64 [W, N]
 
 
@@ -82,8 +95,8 @@ def _ctz(v: int) -> int:
 
 
 def bit_length(x: torch.Tensor, bits: int = 32) -> torch.Tensor:
-    """Exact bit length of non-negative ``x < 2**bits`` by a compare
-    ladder (torch has no clz; a float log2 would round)."""
+    """Exact bit length of non-negative ``x < 2**bits`` (``bits`` <= 63) by
+    a compare ladder (torch has no clz; a float log2 would round)."""
     n = torch.zeros_like(x)
     for k in range(bits):
         n += (x >= (1 << k)).to(x.dtype)
@@ -156,7 +169,8 @@ def best_fixed_order(planes: torch.Tensor, wide: bool):
 
 def residuals_for_order(planes: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Residuals of each plane's chosen order as i32 (wrapping, as the
-    reference's i32 arithmetic), the first ``order`` slots zeroed."""
+    reference's i32 arithmetic), the first ``order`` slots zeroed. Planes
+    may be int32 or int64 (the 33-bit side plane)."""
     B = planes.shape[-1]
     p = planes.to(torch.int64)
     coeffs = torch.tensor(BINOM, dtype=torch.int64, device=planes.device)[order]
@@ -233,7 +247,7 @@ def rice_estimate(
 
     L = _ilog2(B)
     limit_by_order = torch.tensor(
-        [15] + [L - _ilog2(k) for k in range(1, MAX_FIXED_ORDER + 1)],
+        [15] + [L - _ilog2(k) for k in range(1, lpc.MAX_LPC_ORDER + 1)],
         dtype=torch.int64, device=dev,
     )
     dyn_max_po = limit_by_order[order].clamp(max=po_top)
@@ -260,15 +274,26 @@ def rice_estimate(
     return pick(totals), pick(methods), best_po, p_all.gather(0, idx).squeeze(0)
 
 
+def lpc_order_of(config: EncoderConfig) -> int:
+    """The largest LPC order the analysis may pick: the configured one
+    when the prediction is LPC, else 0 (no LPC subframes)."""
+    return config.lpc_order if config.prediction == "lpc" else 0
+
+
 def _apply_wasted(planes: torch.Tensor, sample_size: int, config: EncoderConfig):
     """Wasted-bits shave (extension; the reference always writes 0): the
     plane's common trailing zero bits come off and the samples encode at a
-    reduced width."""
+    reduced width. Trailing zeros count over the plane's own width (64 bits
+    for the 33-bit side plane)."""
     batch_shape = planes.shape[:-1]
     if not config.wasted_bits:
         return planes, torch.zeros(batch_shape, dtype=torch.int64, device=planes.device)
-    ored = tree_or(planes.to(torch.int64)) & 0xFFFFFFFF
-    ctz = bit_length(ored & -ored) - 1
+    ored = tree_or(planes.to(torch.int64))
+    if planes.dtype == torch.int64:
+        ctz = bit_length(ored & -ored, 63) - 1
+    else:
+        ored = ored & 0xFFFFFFFF
+        ctz = bit_length(ored & -ored) - 1
     wasted = torch.where(ored != 0, ctz, 0).clamp(0, sample_size - 1)
     return planes >> wasted[..., None].to(planes.dtype), wasted
 
@@ -282,15 +307,14 @@ def analyze_planes(
 ) -> PlaneAnalysis:
     """Full per-plane subframe decision (libFLAC/Encoder.zig:320-376).
 
-    ``planes``: [..., B] int32. ``bits_of_t`` is 32: the reference compares
+    ``planes``: [..., B] int32, or int64 for the 33-bit side plane of a
+    32-bit stream. ``bits_of_t`` is 32 or 64: the reference compares
     against ``@bitSizeOf(SampleT)``. ``sample_size`` is the STREAMINFO
     depth (not +1 for side planes, as the reference passes it).
     """
     B = block_size
     if planes.shape[-1] != B:
         raise ValueError(f"planes hold {planes.shape[-1]} samples, expected {B}")
-    if config.prediction == "lpc":
-        raise NotImplementedError("LPC prediction: ROADMAP module queue item 8")
     batch_shape = planes.shape[:-1]
     dev = planes.device
     wide = not (sample_size < 28 and bits_of_t == 32)
@@ -299,15 +323,17 @@ def analyze_planes(
     all_eq = (planes == planes[..., :1]).all(dim=-1)
     verb_bits = B * bits_of_t
     z = torch.zeros(batch_shape, dtype=torch.int64, device=dev)
+    zq = torch.zeros(batch_shape + (lpc.MAX_LPC_ORDER,), dtype=torch.int64, device=dev)
 
-    if B <= MAX_FIXED_ORDER or config.prediction == "none":
+    lpc_order = lpc_order_of(config)
+    if B <= max(MAX_FIXED_ORDER, lpc_order) or config.prediction == "none":
         return PlaneAnalysis(
             kind=torch.where(all_eq, 0, 1),
             est_bits=torch.where(all_eq, bits_of_t, verb_bits),
             order=z, method=z, part_order=z,
             params=torch.zeros(batch_shape + (256,), dtype=torch.int64, device=dev),
             residuals=torch.zeros(batch_shape + (B,), dtype=torch.int32, device=dev),
-            wasted=wasted,
+            qcoeffs=zq, qshift=z, wasted=wasted,
         )
 
     order, ok = best_fixed_order(planes, wide)
@@ -320,9 +346,33 @@ def analyze_planes(
     )
     # a wide-mode overflow disqualifies the fixed candidate entirely
     rice_bits = torch.where(ok, rice_bits, I64_MAX)
-    use_pred = ok & (rice_bits < verb_bits) & ~all_eq
+    use_lpc = torch.zeros_like(ok)
+    qcoeffs, qshift = zq, z
+    if lpc_order:
+        # one LPC candidate per plane competes with the best fixed order on
+        # estimated bits plus its coefficient overhead (strict <)
+        l_order, res_lpc, l_q, l_shift, l_ok = lpc.analyze_lpc(
+            planes, lpc_order, config.lpc_precision
+        )
+        l_bits, l_method, l_po, l_params = rice_estimate(
+            res_lpc, l_order, B, config.max_rice_order, max_param
+        )
+        l_cost = l_bits + 9 + l_order * config.lpc_precision
+        use_lpc = l_ok & (l_cost < rice_bits)
+        rice_bits = torch.where(use_lpc, l_cost, rice_bits)
+        method = torch.where(use_lpc, l_method, method)
+        part_order = torch.where(use_lpc, l_po, part_order)
+        params = torch.where(use_lpc[..., None], l_params, params)
+        order = torch.where(use_lpc, l_order, order)
+        qcoeffs = torch.where(use_lpc[..., None], l_q, qcoeffs)
+        qshift = torch.where(use_lpc, l_shift, qshift)
+
+    use_pred = (ok | use_lpc) & (rice_bits < verb_bits) & ~all_eq
+    kind = torch.where(all_eq, 0, torch.where(use_pred, torch.where(use_lpc, 3, 2), 1))
+    if lpc_order:
+        residuals = torch.where((kind == 3)[..., None], res_lpc, residuals)
     return PlaneAnalysis(
-        kind=torch.where(all_eq, 0, torch.where(use_pred, 2, 1)),
+        kind=kind,
         est_bits=torch.where(
             all_eq, bits_of_t, torch.where(use_pred, rice_bits, verb_bits)
         ),
@@ -331,13 +381,10 @@ def analyze_planes(
         part_order=part_order,
         params=params,
         residuals=residuals,
+        qcoeffs=qcoeffs,
+        qshift=qshift,
         wasted=wasted,
     )
-
-
-def _check_depth(depth: int) -> None:
-    if depth == 32:
-        raise NotImplementedError("32-bit depth: ROADMAP module queue item 9")
 
 
 def plan_frames_indep(
@@ -345,7 +392,6 @@ def plan_frames_indep(
 ) -> FrameWirePlan:
     """Independent channels, each analyzed and written as-is
     (libFLAC/Encoder.zig:242-247)."""
-    _check_depth(depth)
     n, c, B = frames.shape
     pm = frames.movedim(1, 0)  # [c, n, B] plane-major
     a = analyze_planes(pm, 32, depth, B, config)
@@ -359,6 +405,8 @@ def plan_frames_indep(
         params=a.params,
         planes=pm >> a.wasted[..., None].to(pm.dtype),
         residuals=a.residuals,
+        qcoeffs=a.qcoeffs,
+        qshift=a.qshift,
         wasted=a.wasted,
     )
 
@@ -368,8 +416,9 @@ def plan_frames_stereo(
 ) -> FrameWirePlan:
     """stereo_auto: analyze the L/R/M/S planes, pick the first-min of
     {L+R, L+S, S+R, M+S} and emit the two wire channels
-    (libFLAC/Encoder.zig:248-314)."""
-    _check_depth(depth)
+    (libFLAC/Encoder.zig:248-314). At depth 32 the side plane is 33 bits:
+    it stays int64 and is analyzed wide (``bits_of_t = 64``), and the wire
+    planes are int64."""
     n, c, B = frames.shape
     if c != 2:
         raise ValueError(f"stereo_auto needs 2 channels, got {c}")
@@ -377,9 +426,16 @@ def plan_frames_stereo(
     right = frames[:, 1].to(torch.int64)
     mid = (left + right) >> 1
     side = left - right
-    lrms = torch.stack([left, right, mid, side]).to(torch.int32)  # [4, n, B]
-    a = analyze_planes(lrms, 32, depth, B, config)
-    planes_w = lrms >> a.wasted[..., None].to(torch.int32)
+    if depth == 32:
+        lrm = torch.stack([left, right, mid]).to(torch.int32)  # [3, n, B]
+        a3 = analyze_planes(lrm, 32, depth, B, config)
+        a_s = analyze_planes(side, 64, depth, B, config)
+        a = PlaneAnalysis(*[torch.cat([x, y[None]]) for x, y in zip(a3, a_s)])
+        lrms = torch.cat([lrm.to(torch.int64), side[None]])  # [4, n, B] i64
+    else:
+        lrms = torch.stack([left, right, mid, side]).to(torch.int32)  # [4, n, B]
+        a = analyze_planes(lrms, 32, depth, B, config)
+    planes_w = lrms >> a.wasted[..., None].to(lrms.dtype)
 
     est = a.est_bits  # [4, n] in plane order L, R, M, S
     sums = torch.stack(
@@ -409,6 +465,8 @@ def plan_frames_stereo(
         params=gather_ch(a.params),
         planes=gather_ch(planes_w),
         residuals=gather_ch(a.residuals),
+        qcoeffs=gather_ch(a.qcoeffs),
+        qshift=gather_ch(a.qshift),
         wasted=wasted_w,
     )
 

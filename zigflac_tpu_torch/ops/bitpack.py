@@ -48,27 +48,34 @@ def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def channel_symbols(
-    kind: torch.Tensor,         # [N]: 0 const, 1 verbatim, 2 fixed
+    kind: torch.Tensor,         # [N]: 0 const, 1 verbatim, 2 fixed, 3 lpc
     order: torch.Tensor,        # [N]
     method: torch.Tensor,       # [N]
     part_order: torch.Tensor,   # [N]
     sample_size: torch.Tensor,  # [N]
     params: torch.Tensor,       # [N, 256]
-    plane: torch.Tensor,        # i32 [N, B]
+    plane: torch.Tensor,        # i32 or i64 [N, B]
     residuals: torch.Tensor,    # i32 [N, B]
+    qcoeffs: torch.Tensor,      # [N, 32] quantized LPC coefficients
+    qshift: torch.Tensor,       # [N] LPC coefficient shift
     wasted: torch.Tensor,       # [N] shaved bits (extension)
     block_size: int,
     max_rice_order: int,
+    lpc_order: int,             # analyze.lpc_order_of(config); 0: LPC off
+    lpc_precision: int,
 ):
     """Symbols of one subframe: header byte, (wasted-bits unary), warmup,
-    method/part-order, then per grid group one partition-param column and
-    its residual codes (reference serializers: FrameWriter.zig:251-361).
-    Returns int64 (widths [N, S], deposit values, deposit value bits)."""
+    (LPC precision/shift and coefficients), method/part-order, then per
+    grid group one partition-param column and its residual codes
+    (reference serializers: FrameWriter.zig:251-361; the LPC layout is the
+    FLAC format's, the reference stubs it). Returns int64 (widths [N, S],
+    deposit values, deposit value bits)."""
     n, B = plane.shape
     dev = plane.device
     is_const = kind == 0
     is_verb = kind == 1
-    is_pred = kind == 2
+    is_lpc = kind == 3
+    is_pred = (kind == 2) | is_lpc
     ss = sample_size
     p64 = plane.to(torch.int64)
     nb_cols, val_cols, nbv_cols = [], [], []
@@ -80,20 +87,32 @@ def channel_symbols(
 
     # subframe header byte (bit 0 = wasted-bits flag), then the unary
     # wasted-bits field: k-1 zeros and a 1 terminator (k bits in all)
-    hdr = torch.where(is_const, 0, torch.where(is_verb, 2, (8 | order) << 1))
+    hdr = torch.where(
+        is_const, 0,
+        torch.where(is_verb, 2, torch.where(is_lpc, (0x20 | (order - 1)) << 1, (8 | order) << 1)),
+    )
     hdr = hdr | (wasted > 0).to(torch.int64)
     eight = torch.full((n, 1), 8, dtype=torch.int64, device=dev)
     add(eight, hdr[:, None], eight)
     wb_nb = torch.where(wasted > 0, wasted, 0)[:, None]
     add(wb_nb, (wb_nb > 0).to(torch.int64), (wb_nb > 0).to(torch.int64))
 
-    # warmup samples; a frame of B <= 4 samples is never predicted, and
-    # slicing min(B, 4) columns keeps B = 1..3 in shape
-    mw = min(B, MAX_FIXED_ORDER)
+    # warmup samples; a frame of B <= max(4, lpc_order) samples is never
+    # predicted, and slicing min(B, ...) columns keeps short frames in shape
+    mw = min(B, max(MAX_FIXED_ORDER, lpc_order))
     w_idx = torch.arange(mw, device=dev)
     w_active = is_pred[:, None] & (w_idx < order[:, None])
     w_nb = torch.where(w_active, ss[:, None], 0)
     add(w_nb, p64[:, :mw] & _mask(w_nb), w_nb)
+
+    if lpc_order:
+        # precision-1 (4 bits) and shift (5 bits), then ``order``
+        # coefficients of ``lpc_precision`` bits each
+        ps_nb = torch.where(is_lpc, 9, 0)[:, None]
+        add(ps_nb, torch.where(is_lpc, ((lpc_precision - 1) << 5) | qshift, 0)[:, None], ps_nb)
+        c_idx = torch.arange(lpc_order, device=dev)
+        c_nb = torch.where(is_lpc[:, None] & (c_idx < order[:, None]), lpc_precision, 0)
+        add(c_nb, qcoeffs[:, :lpc_order] & _mask(c_nb), c_nb)
 
     # method(2) + partition order(4)
     m_nb = torch.where(is_pred, 6, 0)[:, None]
@@ -191,9 +210,12 @@ def frame_symbol_stream(
     hstatic: HeaderStatic,
     block_size: int,
     max_rice_order: int,
+    lpc_order: int,
+    lpc_precision: int,
 ):
     """The whole-frame deposit stream: header bytes + every channel's
-    subframe symbols, with the offset prefix sum. Returns int64
+    subframe symbols, with the offset prefix sum. ``lpc_order`` is
+    ``analyze.lpc_order_of(config)``. Returns int64
     (dep_cum [N, S], total_bits [N], dep_val [N, S], dep_nbv [N, S]):
     ``dep_cum`` is each field's end bit."""
     hb, hlen = build_headers(frame_numbers, plan.channels_code, hstatic)
@@ -202,7 +224,8 @@ def frame_symbol_stream(
         parts.append(channel_symbols(
             plan.kind[c], plan.order[c], plan.method[c], plan.part_order[c],
             plan.sample_size[c], plan.params[c], plan.planes[c],
-            plan.residuals[c], plan.wasted[c], block_size, max_rice_order,
+            plan.residuals[c], plan.qcoeffs[c], plan.qshift[c], plan.wasted[c],
+            block_size, max_rice_order, lpc_order, lpc_precision,
         ))
     nb, val, nbv = (torch.cat(cols, 1) for cols in zip(*parts))
     dep_cum = nb.cumsum(1)
@@ -216,13 +239,16 @@ def pack_frames(
     block_size: int,
     max_rice_order: int,
     max_words: int,
+    lpc_order: int,
+    lpc_precision: int,
 ):
     """Full frames (header + subframes) -> (words int32 [N, max_words],
     total_bits int64 [N]). Deposits past ``max_words`` are dropped; the
     caller sees the frame's size in ``total_bits`` and re-encodes at a
-    larger capacity."""
+    larger capacity. ``lpc_order`` is ``analyze.lpc_order_of(config)``."""
     dep_cum, total_bits, dep_val, dep_nbv = frame_symbol_stream(
-        plan, frame_numbers, hstatic, block_size, max_rice_order
+        plan, frame_numbers, hstatic, block_size, max_rice_order,
+        lpc_order, lpc_precision,
     )
     stages.mark("symbols")
     words = deposit.deposit_words(

@@ -9,7 +9,9 @@ field's end bit), ``val`` (int64 [N, S], the field's value in its low
 
 ``deposit_words`` routes by device: a CUDA tensor launches the kernel in
 ``csrc/deposit.cu`` (or raises), a CPU tensor takes ``deposit_words_plain``.
-``KERNEL_LAUNCHES`` and ``PLAIN_CALLS`` count each.
+``KERNEL_LAUNCHES`` and ``PLAIN_CALLS`` count each; ``GLOBAL_ROW_LAUNCHES``
+counts the launches whose rows are over the kernel's shared-memory row
+(``shared_row_bytes()``) and so take its global-memory branch.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ from __future__ import annotations
 import torch
 
 KERNEL_LAUNCHES = 0
+GLOBAL_ROW_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 
 def reset_counts() -> None:
-    global KERNEL_LAUNCHES, PLAIN_CALLS
+    global KERNEL_LAUNCHES, GLOBAL_ROW_LAUNCHES, PLAIN_CALLS
     KERNEL_LAUNCHES = 0
+    GLOBAL_ROW_LAUNCHES = 0
     PLAIN_CALLS = 0
 
 
@@ -76,7 +80,7 @@ def deposit_words(
 ) -> torch.Tensor:
     """Deposit on the tensors' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    global KERNEL_LAUNCHES, PLAIN_CALLS
+    global KERNEL_LAUNCHES, GLOBAL_ROW_LAUNCHES, PLAIN_CALLS
     _check(d_cum, val, nbv, max_words)
     if d_cum.device.type == "cpu":
         PLAIN_CALLS += 1
@@ -99,4 +103,14 @@ def deposit_words(
             f"deposit kernel launch failed: {lib.zf_error_string(err).decode()}"
         )
     KERNEL_LAUNCHES += 1
+    GLOBAL_ROW_LAUNCHES += max_words * 4 > lib.zf_shared_row_bytes()
     return out
+
+
+def shared_row_bytes() -> int:
+    """The largest row, in bytes, that the kernel builds in shared memory
+    (``kSharedRowBytes``, read from the built library); larger rows take
+    its global-memory branch."""
+    from ._build import library
+
+    return library().zf_shared_row_bytes()
