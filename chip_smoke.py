@@ -30,10 +30,33 @@ Phases:
      must give the pinned bytes; a batch of 32-bit white noise overflows
      tier 0, re-encodes at the exact tier through the kernel's
      global-memory branch and must equal the port's bytes on the CPU.
+  7. Config 2 at full size: bench.py's 24-bit / 96 kHz input (1024 frames,
+     43.7 s) through encode_wav_bytes must give the pinned bytes. Prints
+     the warm wall time, x-realtime and the stage times.
+  8. Config 4: an album directory of 10 WAVs in two format groups (the
+     config-1 and config-2 inputs and eight 16-bit tracks of 176-315 s,
+     ~37 minutes) through one encode_files call. The config-1 and config-2
+     outputs must give their pinned bytes, every other file its in-memory
+     encode's. Prints the wall time, x-realtime and the batch, tail and
+     mixed-file batch dispatch counts, which must be those of full fusion.
+     Then three tracks as Ogg-FLAC, equal to the CPU port's.
+  9. Streaming: a 1-hour WAV (~635 MB, written in pieces) through
+     encode_file with a SEEKTABLE, a tag and PADDING must equal its
+     in-memory encode. Then ``python -m zigflac_tpu_torch.cli`` as
+     subprocesses on the card: one block (the fixed cost of a process on
+     the card), config 1 (pinned bytes), the 1-hour file
+     (equal to encode_file's), ``--batch`` over the album (equal to
+     phase 8's) and ``--ogg`` on config 3 with LPC (equal to the CPU port's
+     CLI). Each subprocess's wall time and peak RSS are printed; the
+     1-hour run's peak RSS must exceed the config-1 run's by less than a
+     quarter of the difference of their WAV sizes.
 
-Every encode path of phases 3-6 runs with the kernel's counts set to 0 just
-before it and read just after: it must have launched the kernel and never
-called the plain version. Any failure raises, so the exit code is not 0.
+Every encode path under test in this process (phases 3-9; not the encodes
+it is compared with, nor the CLI subprocesses) runs with the kernel's counts
+set to 0 just before it and read just after: it must have launched the
+kernel and never called the plain version. Any failure raises, so the exit
+code is not 0. Phases 8 and 9 work in a temporary directory, removed at the
+end.
 The last line is one JSON object naming the card; the line before it lists
 each kernel's launches, error against its plain version, times and bound.
 """
@@ -71,6 +94,26 @@ DEPTH32_FLAC = {  # prediction -> (bytes, sha256)
     "lpc": (26_723_366, "46f5c76620ba637e5ca0a0614e7ab07a31234cac035339057c48a8b31f271e24"),
 }
 NOISE32_FRAMES = 64
+# config 2: bench.py's hires input, 24-bit / 96 kHz stereo, pinned with the
+# JAX package on the CPU
+CONFIG2_SAMPLES = 1024 * BLOCK
+CONFIG2_RATE = 96000
+CONFIG2_WAV_SHA = "c03d03182acabde6d12d1559b03233e165eb6f1dc59e532e7b6957361644e086"
+CONFIG2_FLAC_SHA = "a8862d4d28285611ed876ec9813121a28ac1dd459ad5015266a7e0f665f0e7b9"
+CONFIG2_FLAC_BYTES = 18_831_512
+# config 4's album: eight 16-bit / 44.1 kHz tracks, bench recipe with seed
+# 0xBEEF + 1 + i, beside the config-1 and config-2 files. Each is (seconds,
+# tail): the seconds cut down to whole blocks, then a ragged tail of that
+# many samples: none, 1, under 64 (where the JAX package takes its host
+# oracle), 64, and a block less one
+ALBUM_TRACKS = [(187, 0), (203, 1), (241, 63), (262, 64), (298, 1000), (315, 4095),
+                (176, 2048), (229, 17)]
+ALBUM_OGG_TRACKS = ("track07.wav", "track01.wav", "track02.wav")  # the three shortest
+# the streaming file: one hour of the bench recipe (seed 0xBEEF) plus 777
+# samples, encoded with a SEEKTABLE point every 10 s, one tag and PADDING
+HOUR_SAMPLES = 3600 * RATE + 777
+HOUR_FLAGS = ["--seek-interval", "10", "--tag", "TITLE=one hour", "--padding", "4096"]
+HOUR_KW = dict(seek_interval=10 * RATE, tags=[("TITLE", "one hour")], padding=4096)
 
 # H100 SXM data sheet: HBM rate
 HBM_BYTES_PER_S = 3.35e12
@@ -122,6 +165,278 @@ def bench_wav(write_wav, n, depth=16, rate=RATE, seed=0xBEEF) -> bytes:
     buf = io.BytesIO()
     write_wav(buf, samples, rate, depth)
     return buf.getvalue()
+
+
+def write_bench_wav(path, n, depth=16, rate=RATE, seed=0xBEEF, piece=1 << 21) -> int:
+    """bench_wav's bytes written to ``path`` piece by piece, so a long file
+    is never whole in memory. bench_wav draws the left channel's n normals
+    and then the right's from one generator; here a second generator of the
+    same seed skips the first n draws. Returns the file's size."""
+    from zigflac_tpu_torch.wav import wav_header_bytes, wav_pcm_bytes
+
+    scale = 2.0 ** (depth - 16)
+    lim = float(1 << (depth - 1))
+    rng_l, rng_r = np.random.default_rng(seed), np.random.default_rng(seed)
+    for s in range(0, n, piece):
+        rng_r.normal(0, 120 * scale, min(piece, n - s))
+    with open(path, "wb") as f:
+        f.write(wav_header_bytes(n, 2, rate, depth))
+        for s in range(0, n, piece):
+            m = min(piece, n - s)
+            t = np.arange(s, s + m)
+            base = scale * (9000 * np.sin(2 * np.pi * 440 * t / rate)
+                            + 3000 * np.sin(2 * np.pi * 97 * t / rate))
+            x = np.stack([base + rng_l.normal(0, 120 * scale, m),
+                          0.8 * base + rng_r.normal(0, 120 * scale, m)])
+            f.write(wav_pcm_bytes(np.clip(np.round(x), -lim, lim - 1).astype(np.int64), depth))
+        return f.tell()
+
+
+class DispatchSpy:
+    """While active, counts the pipeline's batch and tail dispatches, and
+    the batches whose frame numbers are not one consecutive run: exactly
+    those holding frames of more than one file, since every file numbers
+    its frames from 0."""
+
+    def __init__(self, pipeline_cls):
+        self.cls = pipeline_cls
+        self.batches = self.mixed = self.tails = 0
+
+    def __enter__(self):
+        batch, tail = self.cls.dispatch_batch, self.cls.dispatch_tail
+        self._saved = batch, tail
+
+        def spy_batch(pipe, chunk, fns, info):
+            self.batches += 1
+            self.mixed += bool(np.any(np.diff(fns) != 1))
+            return batch(pipe, chunk, fns, info)
+
+        def spy_tail(pipe, samples, frame_number, info):
+            self.tails += 1
+            return tail(pipe, samples, frame_number, info)
+
+        self.cls.dispatch_batch, self.cls.dispatch_tail = spy_batch, spy_tail
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.dispatch_batch, self.cls.dispatch_tail = self._saved
+
+
+# The CLI as ``python -m zigflac_tpu_torch.cli`` runs it, then its peak
+# resident memory, sampled every 5 ms from /proc/self/statm by a thread of
+# its own. (ru_maxrss cannot measure a child of this script: Linux carries
+# the forking parent's peak over exec into the child's, so every child
+# reads at least this process's peak; and VmHWM is not offered on every
+# machine.)
+_CLI_WITH_PEAK = (
+    "import os, sys, threading, time\n"
+    "page = os.sysconf('SC_PAGE_SIZE')\n"
+    "peak = [0]\n"
+    "def rss():\n"
+    "    with open('/proc/self/statm') as f:\n"
+    "        return int(f.read().split()[1]) * page\n"
+    "def sample():\n"
+    "    while True:\n"
+    "        peak[0] = max(peak[0], rss())\n"
+    "        time.sleep(0.005)\n"
+    "threading.Thread(target=sample, daemon=True).start()\n"
+    "from zigflac_tpu_torch.cli import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('peak_rss_bytes', max(peak[0], rss()))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def run_cli(args, timeout=600):
+    """One wav2flac CLI subprocess: (wall seconds, its peak RSS in bytes,
+    its output). Raises on a non-zero exit, or at the timeout after killing
+    it."""
+    proc = subprocess.Popen([sys.executable, "-c", _CLI_WITH_PEAK, *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    try:
+        text = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"wav2flac {args} exited {proc.returncode}:\n{text[-4000:]}")
+    peak = [line.split()[1] for line in text.splitlines() if line.startswith("peak_rss_bytes")]
+    return wall, int(peak[-1]), text
+
+
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase7_config2(env, write_wav) -> bytes:
+    """Config 2 at full size through encode_wav_bytes; returns its WAV."""
+    wav2 = bench_wav(write_wav, CONFIG2_SAMPLES, depth=24, rate=CONFIG2_RATE)
+    if _sha(wav2) != CONFIG2_WAV_SHA:
+        raise AssertionError("config 2 input synthesis drifted")
+    (flac, wall, per_batch), k, _ = env.counted(
+        "config 2", lambda: env.timed_encode(wav2, None))
+    env.check("config 2", flac, CONFIG2_FLAC_BYTES, CONFIG2_FLAC_SHA)
+    _log("7", flac_bytes=len(flac), ratio=len(flac) / len(wav2), wall_s=wall,
+         x_realtime=CONFIG2_SAMPLES / CONFIG2_RATE / wall, kernel_launches=k, plain_calls=0,
+         stages_ms=per_batch)
+    return wav2
+
+
+def phase8_album(env, tmp, wav1, wav2, want) -> dict:
+    """Config 4: a 10-file album directory through one encode_files call.
+    ``want`` maps the config-1 and config-2 file names to their pinned
+    sha256. Returns the paths the CLI phase reuses."""
+    zt, dev = env.zt, env.dev
+    indir, outdir = os.path.join(tmp, "album"), os.path.join(tmp, "album_flac")
+    os.makedirs(indir)
+    os.makedirs(outdir)
+    samples, rates = {}, {}
+    for name, wav, n, rate in (("config1.wav", wav1, CONFIG1_SECONDS * RATE, RATE),
+                               ("config2.wav", wav2, CONFIG2_SAMPLES, CONFIG2_RATE)):
+        with open(os.path.join(indir, name), "wb") as f:
+            f.write(wav)
+        samples[name], rates[name] = n, rate
+    t0 = time.perf_counter()
+    for i, (secs, extra) in enumerate(ALBUM_TRACKS):
+        name = f"track{i + 1:02d}.wav"
+        samples[name], rates[name] = secs * RATE // BLOCK * BLOCK + extra, RATE
+        write_bench_wav(os.path.join(indir, name), samples[name], seed=0xBEEF + 1 + i)
+    synth_s = time.perf_counter() - t0
+    names = sorted(samples)
+    ins = [os.path.join(indir, f) for f in names]
+    outs = [os.path.join(outdir, f[:-4] + ".flac") for f in names]
+    audio_s = sum(samples[f] / rates[f] for f in names)
+
+    with DispatchSpy(env.pipeline_cls) as spy:
+        t0 = time.perf_counter()
+        _, k, _ = env.counted("config 4 album", lambda: zt.encode_files(ins, outs, device=dev))
+        wall = time.perf_counter() - t0
+    # fusion: per format group, ceil(all full frames / 1024) batches
+    full16 = sum(samples[f] // BLOCK for f in names if f != "config2.wav")
+    want_batches = -(-full16 // 1024) + -(-(samples["config2.wav"] // BLOCK) // 1024)
+    want_tails = sum(bool(samples[f] % BLOCK) for f in names)
+    if (spy.batches, spy.tails) != (want_batches, want_tails):
+        raise AssertionError(f"album: {spy.batches} batches, {spy.tails} tails, expected "
+                             f"{want_batches} and {want_tails}")
+    for name, out in zip(names, outs):
+        got = _read(out)
+        if name in want:
+            if _sha(got) != want[name]:
+                raise AssertionError(f"album {name}: sha256 {_sha(got)}")
+        elif got != zt.encode_wav_bytes(_read(os.path.join(indir, name)), device=dev):
+            raise AssertionError(f"album {name}: differs from its in-memory encode")
+    wav_bytes = sum(os.path.getsize(p) for p in ins)
+    flac_bytes = sum(os.path.getsize(p) for p in outs)
+    _log("8", files=len(names), audio_s=audio_s, wav_bytes=wav_bytes, flac_bytes=flac_bytes,
+         synth_s=synth_s, wall_s=wall, x_realtime=audio_s / wall, batch_dispatches=spy.batches,
+         tail_dispatches=spy.tails, mixed_batches=spy.mixed, kernel_launches=k, plain_calls=0,
+         each_equals_in_memory=True)
+
+    # Ogg-FLAC on three tracks, against the CPU port
+    ogg_in = [os.path.join(indir, f) for f in ALBUM_OGG_TRACKS]
+    ogg_out = [os.path.join(tmp, f[:-4] + ".oga") for f in ALBUM_OGG_TRACKS]
+    ogg_cpu = [os.path.join(tmp, f[:-4] + ".cpu.oga") for f in ALBUM_OGG_TRACKS]
+    t0 = time.perf_counter()
+    _, k, _ = env.counted("config 4 ogg", lambda: zt.encode_files(ogg_in, ogg_out, device=dev,
+                                                                   ogg=True))
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zt.encode_files(ogg_in, ogg_cpu, device="cpu", ogg=True)
+    cpu_wall = time.perf_counter() - t0
+    for a, b in zip(ogg_out, ogg_cpu):
+        got = _read(a)
+        if got[:4] != b"OggS" or got != _read(b):
+            raise AssertionError(f"ogg {a}: differs from the CPU port")
+    _log("8-ogg", files=len(ogg_in), audio_s=sum(samples[f] / RATE for f in ALBUM_OGG_TRACKS),
+         wall_s=wall, cpu_port_wall_s=cpu_wall, kernel_launches=k, plain_calls=0,
+         equals_cpu=True)
+    return dict(indir=indir, outs=dict(zip(names, outs)))
+
+
+def phase9_stream_and_cli(env, tmp, album, wav3, want1):
+    """The 1-hour file through encode_file against its in-memory encode, then
+    the CLI as subprocesses on the card, with each one's peak RSS."""
+    zt, dev = env.zt, env.dev
+    hour, out = os.path.join(tmp, "hour.wav"), os.path.join(tmp, "hour.flac")
+    t0 = time.perf_counter()
+    hour_size = write_bench_wav(hour, HOUR_SAMPLES)
+    synth_s = time.perf_counter() - t0
+    audio_s = HOUR_SAMPLES / RATE
+    t0 = time.perf_counter()
+    _, k, _ = env.counted("1-hour encode_file",
+                          lambda: zt.encode_file(hour, out, device=dev, **HOUR_KW))
+    wall = time.perf_counter() - t0
+    streamed = _read(out)
+    t0 = time.perf_counter()
+    wav = _read(hour)
+    in_memory = zt.encode_wav_bytes(wav, device=dev, **HOUR_KW)
+    env.sync()
+    mem_wall = time.perf_counter() - t0
+    del wav
+    if streamed != in_memory:
+        raise AssertionError("1-hour encode_file differs from its in-memory encode")
+    del in_memory
+    _log("9", wav_bytes=hour_size, audio_s=audio_s, synth_s=synth_s, flac_bytes=len(streamed),
+         sha256=_sha(streamed), encode_file_wall_s=wall, x_realtime=audio_s / wall,
+         in_memory_wall_s=mem_wall, in_memory_x_realtime=audio_s / mem_wall,
+         kernel_launches=k, plain_calls=0, equals_in_memory=True)
+
+    import resource
+
+    device = ["--device", str(dev)]
+    wav1_path = os.path.join(album["indir"], "config1.wav")
+    # the fixed cost: torch, the CUDA context and one one-frame batch
+    one = os.path.join(tmp, "one_block.wav")
+    write_bench_wav(one, BLOCK)
+    wall_0, rss_0, _ = run_cli([one, os.path.join(tmp, "one_block.flac"), *device])
+    cli = {"one_block": dict(wall_s=wall_0, peak_rss_bytes=rss_0)}
+    out_a = os.path.join(tmp, "cli_a.flac")
+    wall_a, rss_a, _ = run_cli([wav1_path, out_a, *device])
+    children_a = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024
+    if _sha(_read(out_a)) != want1:
+        raise AssertionError("cli (a): config 1 differs from the pinned stream")
+    cli["a_config1"] = dict(wall_s=wall_a, peak_rss_bytes=rss_a)
+    out_b = os.path.join(tmp, "cli_b.flac")
+    wall_b, rss_b, _ = run_cli([hour, out_b, *HOUR_FLAGS, *device])
+    children_b = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024
+    if _read(out_b) != streamed:
+        raise AssertionError("cli (b): the 1-hour file differs from encode_file's")
+    cli["b_hour"] = dict(wall_s=wall_b, peak_rss_bytes=rss_b, x_realtime=audio_s / wall_b)
+    del streamed
+    rss_room = (hour_size - os.path.getsize(wav1_path)) / 4
+    if rss_b - rss_a >= rss_room:
+        raise AssertionError(f"cli (b) peak RSS {rss_b} B exceeds (a)'s {rss_a} B by a "
+                             f"quarter of the WAV size difference or more")
+    cli_dir = os.path.join(tmp, "cli_batch")
+    wall_c, rss_c, _ = run_cli(["--batch", album["indir"], cli_dir, *device])
+    for name, path in album["outs"].items():
+        if _read(os.path.join(cli_dir, name[:-4] + ".flac")) != _read(path):
+            raise AssertionError(f"cli (c): {name} differs from encode_files'")
+    cli["c_batch"] = dict(wall_s=wall_c, peak_rss_bytes=rss_c, files=len(album["outs"]))
+    wav3_path = os.path.join(tmp, "config3.wav")
+    with open(wav3_path, "wb") as f:
+        f.write(wav3)
+    lpc_ogg = ["--ogg", "--prediction", "lpc"]
+    out_d, out_cpu = os.path.join(tmp, "cli_d.oga"), os.path.join(tmp, "cli_d.cpu.oga")
+    wall_d, rss_d, _ = run_cli([wav3_path, out_d, *lpc_ogg, *device])
+    from zigflac_tpu_torch.cli import main as cli_main
+
+    if cli_main([wav3_path, out_cpu, *lpc_ogg, "--device", "cpu"]) != 0:
+        raise AssertionError("the CPU port's CLI failed on config 3")
+    got = _read(out_d)
+    if got[:4] != b"OggS" or got != _read(out_cpu):
+        raise AssertionError("cli (d): config 3 Ogg-FLAC differs from the CPU port's")
+    cli["d_config3_ogg"] = dict(wall_s=wall_d, peak_rss_bytes=rss_d)
+    # RUSAGE_CHILDREN reads at least this process's own peak (see
+    # _CLI_WITH_PEAK), printed beside it; the check uses each child's own peak
+    _log("9-cli", runs=cli, rusage_children_max_rss_after_a=children_a,
+         rusage_children_max_rss_after_b=children_b,
+         this_process_max_rss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+         rss_b_minus_a=rss_b - rss_a, rss_room=rss_room, all_equal=True)
 
 
 # the cases of tests/test_regression_corpus.py with their synthesis recipe
@@ -543,6 +858,19 @@ def main() -> int:
         raise AssertionError("32-bit noise never reached the exact tier's wide rows")
     _log("6-noise", frames=NOISE32_FRAMES, flac_bytes=len(flac), equals_cpu=True,
          kernel_launches=k, global_row_launches=g)
+
+    # -- phases 7-9: config 2, the config-4 album, streaming and the CLI ------
+    import tempfile
+    from types import SimpleNamespace
+
+    env = SimpleNamespace(zt=zt, dev=dev, counted=counted, check=check,
+                          timed_encode=timed_encode, sync=torch.cuda.synchronize,
+                          pipeline_cls=pl.DevicePipeline)
+    wav2 = phase7_config2(env, write_wav)
+    with tempfile.TemporaryDirectory(prefix="zf_smoke_") as tmp:
+        album = phase8_album(env, tmp, wav1, wav2, {"config1.wav": CONFIG1_FLAC_SHA,
+                                                   "config2.wav": CONFIG2_FLAC_SHA})
+        phase9_stream_and_cli(env, tmp, album, wav3, CONFIG1_FLAC_SHA)
     _log("end", wall_s=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [{

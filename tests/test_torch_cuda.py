@@ -145,3 +145,56 @@ def test_stage_marks_on_card(rng, monkeypatch):
     for b in got:
         assert list(b) == ["analysis", "symbols", "deposit", "crc", "compaction"]
         assert all(v >= 0 for v in b.values())
+
+
+def test_encode_files_on_card_equals_cpu(rng, tmp_path):
+    """A 3-file directory in two format groups (16-bit stereo with a
+    ragged and a short tail, 24-bit mono), fused on the card."""
+    specs = [(5 * 1024 + 33, 2, 16), (2 * 1024 + 1, 1, 24), (700, 2, 16)]
+    for i, (n, channels, depth) in enumerate(specs):
+        (tmp_path / f"t{i}.wav").write_bytes(_wav(rng, n, channels, depth))
+    ins = [str(tmp_path / f"t{i}.wav") for i in range(3)]
+    outs = [str(tmp_path / f"t{i}.flac") for i in range(3)]
+    refs = [str(tmp_path / f"t{i}.cpu.flac") for i in range(3)]
+    cfg = EncoderConfig(block_size=1024)
+    deposit.reset_counts()
+    zigflac_tpu_torch.encode_files(ins, outs, config=cfg, device="cuda", frames_per_chunk=4)
+    assert deposit.KERNEL_LAUNCHES > 0 and deposit.PLAIN_CALLS == 0
+    zigflac_tpu_torch.encode_files(ins, refs, config=cfg, device="cpu", frames_per_chunk=4)
+    for o, r in zip(outs, refs):
+        with open(o, "rb") as f, open(r, "rb") as g:
+            assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("frames_per_chunk", [None, 3])
+def test_encode_file_on_card_equals_in_memory(rng, tmp_path, frames_per_chunk):
+    """encode_file in one batch, and the streaming path in chunks of 3
+    frames with 2 batches in flight, with tags, SEEKTABLE and PADDING."""
+    wav = _wav(rng, 7 * 4096 + 555)
+    path, out = tmp_path / "in.wav", tmp_path / "o.flac"
+    path.write_bytes(wav)
+    kw = dict(tags=[("TITLE", "card")], seek_interval=8192, padding=128)
+    deposit.reset_counts()
+    if frames_per_chunk is None:
+        zigflac_tpu_torch.encode_file(str(path), str(out), device="cuda", **kw)
+    else:
+        zigflac_tpu_torch.encode_file_streaming(str(path), str(out), device="cuda",
+                                                frames_per_chunk=frames_per_chunk, **kw)
+    assert deposit.KERNEL_LAUNCHES > 0 and deposit.PLAIN_CALLS == 0
+    assert out.read_bytes() == zigflac_tpu_torch.encode_wav_bytes(wav, device="cuda", **kw)
+
+
+@pytest.mark.parametrize("ogg", [False, True])
+def test_cli_on_card_equals_cpu(rng, tmp_path, ogg):
+    from zigflac_tpu_torch import cli
+
+    path = tmp_path / "in.wav"
+    path.write_bytes(_wav(rng, 3 * 4096 + 17))
+    flags = ["--tag", "TITLE=card", "--seek-interval", "0.1"] + (["--ogg"] if ogg else [])
+    deposit.reset_counts()
+    assert cli.main([str(path), str(tmp_path / "gpu.flac"), "--device", "cuda", *flags]) == 0
+    assert deposit.KERNEL_LAUNCHES > 0 and deposit.PLAIN_CALLS == 0
+    assert cli.main([str(path), str(tmp_path / "cpu.flac"), "--device", "cpu", *flags]) == 0
+    got = (tmp_path / "gpu.flac").read_bytes()
+    assert got == (tmp_path / "cpu.flac").read_bytes()
+    assert got[:4] == (b"OggS" if ogg else b"fLaC")
