@@ -1,11 +1,13 @@
-"""Smoke run of zigflac_tpu_torch on one CUDA card: build, check, encode.
+"""Smoke run of zigflac_tpu_torch on one CUDA card: build, check, encode,
+decode.
 
     python3 chip_smoke.py
 
 Phases:
   0. torch/CUDA versions and the card's name and power limit; a missing
      card is an error.
-  1. Build the CUDA kernels from the package's sources (nvcc, sm_90a).
+  1. Build the CUDA kernels from the package's sources (nvcc, sm_90a) and,
+     beside them, the C++ frame parser (g++), both at once.
   2. The deposit kernel against its plain torch version on the card: random
      symbol streams (33- and 64-bit values, masked and odd columns, the
      word-budget clamp, a row too large for shared memory) and the real
@@ -14,7 +16,13 @@ Phases:
      32-bit white noise at the exact tier (73 KB rows, the kernel's
      global-memory branch). Words must be equal; each is timed with CUDA
      events, and config 1's batch, timed again in turns with the plain
-     version, gives the kernel's times and bound.
+     version, gives the kernel's times and bound. The synthesis kernel's
+     half of this phase (2-synth) runs after phase 6, once the FLAC streams
+     it parses exist: kernel == plain on random subframes (orders 0-32,
+     blocks of 1 to 65535 samples, sums that wrap) and on the first parsed
+     batch (512 frames) of config 1's FLAC, config 3's (LPC) and the 32-bit
+     LPC stream's (33-bit sides), each timed with CUDA events beside its
+     plain version and its bound.
   3. All 22 pinned corpus streams of tests/vectors/corpus (fixed and LPC,
      depths 8 to 32) encoded on the card, byte for byte.
   4. Config 1 at full size: 285 s of 16-bit/44.1 kHz stereo (bench.py's
@@ -39,24 +47,36 @@ Phases:
      outputs must give their pinned bytes, every other file its in-memory
      encode's. Prints the wall time, x-realtime and the batch, tail and
      mixed-file batch dispatch counts, which must be those of full fusion.
-     Then three tracks as Ogg-FLAC, equal to the CPU port's.
-  9. Streaming: a 1-hour WAV (~635 MB, written in pieces) through
-     encode_file with a SEEKTABLE, a tag and PADDING must equal its
-     in-memory encode. Then ``python -m zigflac_tpu_torch.cli`` as
-     subprocesses on the card: one block (the fixed cost of a process on
-     the card), config 1 (pinned bytes), the 1-hour file
-     (equal to encode_file's), ``--batch`` over the album (equal to
-     phase 8's) and ``--ogg`` on config 3 with LPC (equal to the CPU port's
-     CLI). Each subprocess's wall time and peak RSS are printed; the
-     1-hour run's peak RSS must exceed the config-1 run's by less than a
+     Then the shortest track as Ogg-FLAC, equal to the CPU port's.
+  9. Streaming: a 40-minute WAV (~423 MB, written in pieces; 26 batches)
+     through encode_file with a SEEKTABLE, a tag and PADDING must equal its
+     in-memory encode.
+ 10. Decode on the card: decode_flac of the FLAC streams of config 1, config
+     2, config 3 and the 32-bit LPC input must give back the samples of the
+     WAV each was encoded from, with the MD5 verified. Prints the warm wall
+     time, x-realtime, the host parse's seconds, the synthesis kernel's ms
+     per batch and the bytes copied each way; beside it config 1 through
+     backend="native" (all C++, no device). decode_file of config 1 must
+     write the input WAV byte for byte, and decode_range of 10 s from the
+     middle of the 40-minute FLAC (by its SEEKTABLE) the WAV's slice.
+ 11. ``python -m zigflac_tpu_torch.cli`` as subprocesses on the card, six at
+     a time: one block (the fixed cost of a process on the card), config 1
+     (pinned bytes), the 40-minute file (equal to encode_file's),
+     ``--batch`` over the album (equal to phase 8's), ``--ogg`` on config 3
+     with LPC (equal to the CPU port's CLI), config 1 with ``--verify``
+     (prints ``verify: ok``), ``-d`` on config 1's FLAC (the input WAV byte
+     for byte), ``-t`` on it (exit 0), on a copy with a frame byte flipped
+     (exit 2) and on one with an MD5 byte flipped (exit 3), and ``-l``
+     (exit 0). Each subprocess's wall time and peak RSS are printed; the
+     40-minute run's peak RSS must exceed the config-1 run's by less than a
      quarter of the difference of their WAV sizes.
 
-Every encode path under test in this process (phases 3-9; not the encodes
-it is compared with, nor the CLI subprocesses) runs with the kernel's counts
-set to 0 just before it and read just after: it must have launched the
-kernel and never called the plain version. Any failure raises, so the exit
-code is not 0. Phases 8 and 9 work in a temporary directory, removed at the
-end.
+Every encode or decode path under test in this process (phases 3-10; not
+the runs it is compared with, nor the CLI subprocesses) runs with the
+kernels' counts set to 0 just before it and read just after: it must have
+launched its kernel (the deposit for an encode, the synthesis for a decode)
+and never called a plain version. Any failure raises, so the exit code is
+not 0. Phases 8 to 11 work in a temporary directory, removed at the end.
 The last line is one JSON object naming the card; the line before it lists
 each kernel's launches, error against its plain version, times and bound.
 """
@@ -108,12 +128,18 @@ CONFIG2_FLAC_BYTES = 18_831_512
 # oracle), 64, and a block less one
 ALBUM_TRACKS = [(187, 0), (203, 1), (241, 63), (262, 64), (298, 1000), (315, 4095),
                 (176, 2048), (229, 17)]
-ALBUM_OGG_TRACKS = ("track07.wav", "track01.wav", "track02.wav")  # the three shortest
-# the streaming file: one hour of the bench recipe (seed 0xBEEF) plus 777
-# samples, encoded with a SEEKTABLE point every 10 s, one tag and PADDING
-HOUR_SAMPLES = 3600 * RATE + 777
-HOUR_FLAGS = ["--seek-interval", "10", "--tag", "TITLE=one hour", "--padding", "4096"]
-HOUR_KW = dict(seek_interval=10 * RATE, tags=[("TITLE", "one hour")], padding=4096)
+ALBUM_OGG_TRACKS = ("track07.wav",)  # the shortest
+# the streaming file: 40 minutes of the bench recipe (seed 0xBEEF) plus 777
+# samples (26 batches: the 2-batch window, the seek-back and the SEEKTABLE
+# all at work, and long enough that a quarter of its size over config 1's
+# stands clear of the ~40 MB by which two CLI processes' peaks differ
+# anyway), encoded with a SEEKTABLE point every 10 s, one tag and PADDING
+LONG_SAMPLES = 2400 * RATE + 777
+LONG_FLAGS = ["--seek-interval", "10", "--tag", "TITLE=forty minutes", "--padding", "4096"]
+LONG_KW = dict(seek_interval=10 * RATE, tags=[("TITLE", "forty minutes")], padding=4096)
+# decode: frames a batch, as decoder._BATCH_FRAMES
+DECODE_BATCH_FRAMES = 512
+CLI_CHILDREN_AT_ONCE = 6
 
 # H100 SXM data sheet: HBM rate
 HBM_BYTES_PER_S = 3.35e12
@@ -126,6 +152,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # three word pieces' bound checks, addresses and ors ~27, the loads and the
 # loop ~10
 DEPOSIT_INT32_OPS_PER_SYMBOL = 72
+# H100 SXM boost clock (Hopper architecture whitepaper)
+BOOST_HZ = 1.98e9
+# INT32 operations per 64-bit multiply-add in csrc/synth.cu: one wide
+# multiply-add of the low halves and two multiply-adds into the high half,
+# and a share of the loads, shifts and stores
+SYNTH_INT32_OPS_PER_MAC = 4
+# cycles of the dependent chain from one sample to the next: the newest
+# sample's product (wide multiply, then the high half: 2 x 5), the add into
+# the sum with its carry (2 x 2), the funnel shift (4), the add of the value
+# with its carry (4) and the select (2)
+SYNTH_CHAIN_CYCLES_PER_STEP = 24
 
 
 def deposit_bound(n_frames: int, n_sym: int, max_words: int):
@@ -139,6 +176,27 @@ def deposit_bound(n_frames: int, n_sym: int, max_words: int):
     t_ops = DEPOSIT_INT32_OPS_PER_SYMBOL * n_sym / INT32_OPS_PER_S
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return nbytes, max(t_bytes, t_ops) * 1e3, bound_by, t_ops * 1e3
+
+
+def synth_bound(m: int, b: int, order_sum: int, max_order: int):
+    """(bytes, ms, bound_by, parts): the least time the card could take for
+    one synthesis of m subframes of b positions, the largest of three: the
+    bytes (values read once, samples written once, 32 coefficients and
+    three int64 scalars per subframe) over the HBM rate; the multiply-adds
+    that these subframes' orders need (order x b each), at
+    SYNTH_INT32_OPS_PER_MAC INT32 operations, over the INT32 rate; and the
+    dependent chain, b steps of SYNTH_CHAIN_CYCLES_PER_STEP cycles at the
+    boost clock wherever any subframe predicts at all. The chain is a bound
+    on operations: it is reported as such, with ``parts`` naming it."""
+    nbytes = 16 * m * b + (8 * 32 + 24) * m
+    parts = {
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": SYNTH_INT32_OPS_PER_MAC * order_sum * b / INT32_OPS_PER_S * 1e3,
+        "chain_ms": (b * SYNTH_CHAIN_CYCLES_PER_STEP / BOOST_HZ * 1e3) if max_order else 0.0,
+    }
+    largest = max(parts, key=parts.get)
+    parts["largest"] = largest
+    return nbytes, parts[largest], "bytes" if largest == "bytes_ms" else "operations", parts
 
 
 def _sha(b: bytes) -> str:
@@ -247,10 +305,10 @@ _CLI_WITH_PEAK = (
 )
 
 
-def run_cli(args, timeout=600):
+def run_cli(args, timeout=600, expect=0):
     """One wav2flac CLI subprocess: (wall seconds, its peak RSS in bytes,
-    its output). Raises on a non-zero exit, or at the timeout after killing
-    it."""
+    its output). Raises on another exit code than ``expect``, or at the
+    timeout after killing it."""
     proc = subprocess.Popen([sys.executable, "-c", _CLI_WITH_PEAK, *args], cwd=ROOT,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
@@ -261,8 +319,9 @@ def run_cli(args, timeout=600):
         proc.communicate()
         raise
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"wav2flac {args} exited {proc.returncode}:\n{text[-4000:]}")
+    if proc.returncode != expect:
+        raise RuntimeError(f"wav2flac {args} exited {proc.returncode}, expected {expect}:\n"
+                           f"{text[-4000:]}")
     peak = [line.split()[1] for line in text.splitlines() if line.startswith("peak_rss_bytes")]
     return wall, int(peak[-1]), text
 
@@ -273,7 +332,8 @@ def _read(path) -> bytes:
 
 
 def phase7_config2(env, write_wav) -> bytes:
-    """Config 2 at full size through encode_wav_bytes; returns its WAV."""
+    """Config 2 at full size through encode_wav_bytes; returns its WAV and
+    its FLAC."""
     wav2 = bench_wav(write_wav, CONFIG2_SAMPLES, depth=24, rate=CONFIG2_RATE)
     if _sha(wav2) != CONFIG2_WAV_SHA:
         raise AssertionError("config 2 input synthesis drifted")
@@ -283,7 +343,7 @@ def phase7_config2(env, write_wav) -> bytes:
     _log("7", flac_bytes=len(flac), ratio=len(flac) / len(wav2), wall_s=wall,
          x_realtime=CONFIG2_SAMPLES / CONFIG2_RATE / wall, kernel_launches=k, plain_calls=0,
          stages_ms=per_batch)
-    return wav2
+    return wav2, flac
 
 
 def phase8_album(env, tmp, wav1, wav2, want) -> dict:
@@ -336,7 +396,7 @@ def phase8_album(env, tmp, wav1, wav2, want) -> dict:
          tail_dispatches=spy.tails, mixed_batches=spy.mixed, kernel_launches=k, plain_calls=0,
          each_equals_in_memory=True)
 
-    # Ogg-FLAC on three tracks, against the CPU port
+    # Ogg-FLAC on the shortest track, against the CPU port
     ogg_in = [os.path.join(indir, f) for f in ALBUM_OGG_TRACKS]
     ogg_out = [os.path.join(tmp, f[:-4] + ".oga") for f in ALBUM_OGG_TRACKS]
     ogg_cpu = [os.path.join(tmp, f[:-4] + ".cpu.oga") for f in ALBUM_OGG_TRACKS]
@@ -357,84 +417,276 @@ def phase8_album(env, tmp, wav1, wav2, want) -> dict:
     return dict(indir=indir, outs=dict(zip(names, outs)))
 
 
-def phase9_stream_and_cli(env, tmp, album, wav3, want1):
-    """The 1-hour file through encode_file against its in-memory encode, then
-    the CLI as subprocesses on the card, with each one's peak RSS."""
+def phase9_stream(env, tmp) -> dict:
+    """The 40-minute file through encode_file against its in-memory encode.
+    Returns the paths and sizes the later phases reuse."""
     zt, dev = env.zt, env.dev
-    hour, out = os.path.join(tmp, "hour.wav"), os.path.join(tmp, "hour.flac")
+    long_wav, out = os.path.join(tmp, "long.wav"), os.path.join(tmp, "long.flac")
     t0 = time.perf_counter()
-    hour_size = write_bench_wav(hour, HOUR_SAMPLES)
+    long_size = write_bench_wav(long_wav, LONG_SAMPLES)
     synth_s = time.perf_counter() - t0
-    audio_s = HOUR_SAMPLES / RATE
+    audio_s = LONG_SAMPLES / RATE
     t0 = time.perf_counter()
-    _, k, _ = env.counted("1-hour encode_file",
-                          lambda: zt.encode_file(hour, out, device=dev, **HOUR_KW))
+    _, k, _ = env.counted("40-minute encode_file",
+                          lambda: zt.encode_file(long_wav, out, device=dev, **LONG_KW))
     wall = time.perf_counter() - t0
     streamed = _read(out)
     t0 = time.perf_counter()
-    wav = _read(hour)
-    in_memory = zt.encode_wav_bytes(wav, device=dev, **HOUR_KW)
+    wav = _read(long_wav)
+    in_memory = zt.encode_wav_bytes(wav, device=dev, **LONG_KW)
     env.sync()
     mem_wall = time.perf_counter() - t0
     del wav
     if streamed != in_memory:
-        raise AssertionError("1-hour encode_file differs from its in-memory encode")
-    del in_memory
-    _log("9", wav_bytes=hour_size, audio_s=audio_s, synth_s=synth_s, flac_bytes=len(streamed),
+        raise AssertionError("40-minute encode_file differs from its in-memory encode")
+    _log("9", wav_bytes=long_size, audio_s=audio_s, synth_s=synth_s, flac_bytes=len(streamed),
          sha256=_sha(streamed), encode_file_wall_s=wall, x_realtime=audio_s / wall,
          in_memory_wall_s=mem_wall, in_memory_x_realtime=audio_s / mem_wall,
          kernel_launches=k, plain_calls=0, equals_in_memory=True)
+    return dict(wav=long_wav, flac=out, wav_size=long_size, audio_s=audio_s)
+
+
+def _subframes(rng, m, b, max_order=32, wrap=False):
+    """Random normalized subframes as the parser would hand them over:
+    orders 0..max_order with coefficients zero beyond the order, shifts
+    0-15, wasted 0-3, 33-bit values; ``wrap`` takes 62-bit values and
+    coefficients, so every sum passes 2^63."""
+    order = rng.integers(0, max_order + 1, m)
+    bits = 62 if wrap else 15
+    q = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (m, 32))
+    q[np.arange(32)[None, :] >= order[:, None]] = 0
+    vbits = 62 if wrap else 33
+    values = rng.integers(-(1 << (vbits - 1)), 1 << (vbits - 1), (m, b))
+    return values, q, rng.integers(0, 16, m), order, rng.integers(0, 4, m)
+
+
+def phase2_synth(env, streams) -> dict:
+    """The synthesis kernel against its plain version on the card: random
+    subframes, then the first parsed batch of each FLAC in ``streams``
+    (name -> (FLAC bytes, bit depth)). Returns the kernel's entry for the
+    last lines: config 1's batch, timed in turns with the plain version."""
+    torch, dev, synth = env.torch, env.dev, env.synth
+    rng = np.random.default_rng(0x5CA7)
+    max_err = 0
+
+    def compare(args):
+        nonlocal max_err
+        got = synth.synthesize_batch(*args)
+        want = synth.synthesize_batch_plain(*args)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"synthesis kernel != plain (max |diff| {err})")
+
+    cases = [dict(m=100, b=4096), dict(m=3001, b=257), dict(m=37, b=1), dict(m=1, b=33),
+             dict(m=5, b=65535), dict(m=64, b=1000, wrap=True)]
+    for kw in cases:
+        compare([torch.from_numpy(a).to(dev) for a in _subframes(rng, **kw)])
+
+    parser = env.build.native_module()
+    out = {}
+    for name, (flac, depth) in streams.items():
+        pos = env.decoder._parse_metadata(flac)[4]
+        n, _, b, vb, qb, sb, *_ = parser.parse_frames(flac, pos, DECODE_BATCH_FRAMES, depth, 2)
+        m = n * 2
+        sow = np.frombuffer(sb, np.int32).reshape(m, 3).astype(np.int64)
+        args = [torch.from_numpy(np.frombuffer(vb, np.int64).reshape(m, b).copy()).to(dev),
+                torch.from_numpy(np.frombuffer(qb, np.int64).reshape(m, 32).copy()).to(dev),
+                *(torch.from_numpy(sow[:, i].copy()).to(dev) for i in range(3))]
+        compare(args)
+        order = sow[:, 1]
+        nbytes, bound_ms, bound_by, parts = synth_bound(m, b, int(order.sum()), int(order.max()))
+        run_kernel = lambda: synth.synthesize_batch(*args)
+        run_plain = lambda: synth.synthesize_batch_plain(*args)
+        # compare() has warmed both up; the plain loop is slow, so one run
+        # of it on either side of the kernel's for config 1, one elsewhere
+        plain = [cuda_ms(torch, run_plain, reps=1, warm=False)]
+        kernel = [cuda_ms(torch, run_kernel), cuda_ms(torch, run_kernel)]
+        if name == "config1":
+            plain.append(cuda_ms(torch, run_plain, reps=1, warm=False))
+        out[name] = dict(
+            subframes=m, block=b, orders=np.bincount(order, minlength=1).tolist(),
+            max_abs_value_bits=int(np.abs(np.frombuffer(vb, np.int64)).max()).bit_length(),
+            kernel_ms=kernel, plain_ms=plain, bound_bytes=nbytes,
+            bound_ms=bound_ms, bound_by=bound_by, bound_parts=parts)
+        del args
+    if sum(out["config3"]["orders"][5:]) == 0:  # fixed predictors stop at order 4
+        raise AssertionError("config 3's batch has no LPC subframe")
+    _log("2-synth", random_cases=cases, streams=out, max_abs_err=max_err)
+    c1 = out["config1"]
+    return {
+        "name": "synthesize_batch",
+        "route": "cuda",
+        "source": "zigflac_tpu_torch/csrc/synth.cu",
+        "replaces": "zigflac_tpu/ops/synth.py:29",
+        "max_abs_err": max_err,
+        "ms": sum(c1["kernel_ms"]) / len(c1["kernel_ms"]),
+        "plain_ms": sum(c1["plain_ms"]) / len(c1["plain_ms"]),
+        "bound_ms": c1["bound_ms"],
+        "bound_by": c1["bound_by"],
+        "bound_detail": c1["bound_parts"],
+        "library_ms": None,
+    }
+
+
+def phase10_decode(env, tmp, cases, long_file) -> int:
+    """Decode on the card. ``cases`` maps a name to (FLAC bytes, the WAV it
+    was encoded from). Returns the synthesis kernel's launches over the
+    counted decode paths."""
+    zt, dev, decoder, torch = env.zt, env.dev, env.decoder, env.torch
+    from zigflac_tpu_torch.wav import WavReader, wav_header_bytes
+
+    launches = 0
+    for name, (flac, wav) in cases.items():
+        want = WavReader.from_bytes(wav).planar_samples()
+        zt.decode_flac(flac, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, k = env.counted_decode(name, lambda: zt.decode_flac(flac, device=dev))
+        wall = time.perf_counter() - t0
+        launches += k
+        if not got.md5_ok or not np.array_equal(got.samples, want):
+            raise AssertionError(f"decode {name}: samples or MD5 differ from the WAV's")
+        decoder.STATS = {}
+        zt.decode_flac(flac, device=dev)
+        torch.cuda.synchronize()
+        stats, decoder.STATS = decoder.STATS, None
+        kernel_ms = [a.elapsed_time(b) for a, b in stats.pop("synth_events")]
+        t0 = time.perf_counter()  # the MD5 and its byte serialization, part of every decode
+        decoder._verify_md5(got.samples, got.info)
+        stats["md5_s"] = time.perf_counter() - t0
+        audio_s = got.info.interchannel_samples / got.info.sample_rate
+        _log("10", stream=name, flac_bytes=len(flac), frames=got.frame_count, audio_s=audio_s,
+             wall_s=wall, x_realtime=audio_s / wall, kernel_launches=k, plain_calls=0,
+             md5_ok=True, equals_wav=True, kernel_ms_per_batch=kernel_ms, **stats)
+        del got, want
+
+    flac1, wav1 = cases["config1"]
+    audio_s = CONFIG1_SECONDS
+    zt.decode_flac(flac1, backend="native")
+    t0 = time.perf_counter()
+    got = zt.decode_flac(flac1, backend="native")
+    native_wall = time.perf_counter() - t0
+    if not got.md5_ok or not np.array_equal(
+            got.samples, WavReader.from_bytes(wav1).planar_samples()):
+        raise AssertionError("decode config1 (native): samples or MD5 differ from the WAV's")
+    del got
+    src, out = os.path.join(tmp, "config1.flac"), os.path.join(tmp, "config1.decoded.wav")
+    with open(src, "wb") as f:
+        f.write(flac1)
+    t0 = time.perf_counter()
+    _, k = env.counted_decode("decode_file config1",
+                              lambda: zt.decode_file(src, out, device=dev, verify=True))
+    file_wall = time.perf_counter() - t0
+    launches += k
+    if _read(out) != wav1:
+        raise AssertionError("decode_file config1: the WAV differs from the input")
+
+    # 10 s from the middle of the 40-minute FLAC, by its SEEKTABLE
+    start, n = LONG_SAMPLES // 2 + 321, 10 * RATE
+    head = len(wav_header_bytes(LONG_SAMPLES, 2, RATE, 16))
+    with open(long_file["wav"], "rb") as f:
+        f.seek(head + 4 * start)
+        want = np.frombuffer(f.read(4 * n), "<i2").reshape(n, 2).T
+    long_flac = _read(long_file["flac"])
+    if not decoder._parse_metadata(long_flac)[3]:
+        raise AssertionError("the 40-minute FLAC has no SEEKTABLE")
+    t0 = time.perf_counter()
+    got, k = env.counted_decode(
+        "decode_range", lambda: zt.decode_range(long_flac, start, n, device=dev))
+    range_wall = time.perf_counter() - t0
+    launches += k
+    if not np.array_equal(got, want):
+        raise AssertionError("decode_range: the slice differs from the WAV's")
+    _log("10-more", native_config1_wall_s=native_wall, native_x_realtime=audio_s / native_wall,
+         decode_file_config1_wall_s=file_wall, decode_file_x_realtime=audio_s / file_wall,
+         decode_file_equals_wav=True, decode_range_start=start, decode_range_samples=n,
+         decode_range_wall_s=range_wall, decode_range_launches=k, decode_range_equals_wav=True)
+    return launches
+
+
+def phase11_cli(env, tmp, album, long_file, wav3, want1):
+    """The CLI as subprocesses on the card, CLI_CHILDREN_AT_ONCE at a time,
+    with each one's wall and peak RSS. ``tmp`` holds config1.flac (phase
+    10 wrote it)."""
+    from concurrent.futures import ThreadPoolExecutor
 
     import resource
 
-    device = ["--device", str(dev)]
+    device = ["--device", str(env.dev)]
     wav1_path = os.path.join(album["indir"], "config1.wav")
-    # the fixed cost: torch, the CUDA context and one one-frame batch
+    flac1_path = os.path.join(tmp, "config1.flac")
+    flac1 = _read(flac1_path)
     one = os.path.join(tmp, "one_block.wav")
     write_bench_wav(one, BLOCK)
-    wall_0, rss_0, _ = run_cli([one, os.path.join(tmp, "one_block.flac"), *device])
-    cli = {"one_block": dict(wall_s=wall_0, peak_rss_bytes=rss_0)}
-    out_a = os.path.join(tmp, "cli_a.flac")
-    wall_a, rss_a, _ = run_cli([wav1_path, out_a, *device])
-    children_a = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024
-    if _sha(_read(out_a)) != want1:
-        raise AssertionError("cli (a): config 1 differs from the pinned stream")
-    cli["a_config1"] = dict(wall_s=wall_a, peak_rss_bytes=rss_a)
-    out_b = os.path.join(tmp, "cli_b.flac")
-    wall_b, rss_b, _ = run_cli([hour, out_b, *HOUR_FLAGS, *device])
-    children_b = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024
-    if _read(out_b) != streamed:
-        raise AssertionError("cli (b): the 1-hour file differs from encode_file's")
-    cli["b_hour"] = dict(wall_s=wall_b, peak_rss_bytes=rss_b, x_realtime=audio_s / wall_b)
-    del streamed
-    rss_room = (hour_size - os.path.getsize(wav1_path)) / 4
-    if rss_b - rss_a >= rss_room:
-        raise AssertionError(f"cli (b) peak RSS {rss_b} B exceeds (a)'s {rss_a} B by a "
-                             f"quarter of the WAV size difference or more")
-    cli_dir = os.path.join(tmp, "cli_batch")
-    wall_c, rss_c, _ = run_cli(["--batch", album["indir"], cli_dir, *device])
-    for name, path in album["outs"].items():
-        if _read(os.path.join(cli_dir, name[:-4] + ".flac")) != _read(path):
-            raise AssertionError(f"cli (c): {name} differs from encode_files'")
-    cli["c_batch"] = dict(wall_s=wall_c, peak_rss_bytes=rss_c, files=len(album["outs"]))
     wav3_path = os.path.join(tmp, "config3.wav")
     with open(wav3_path, "wb") as f:
         f.write(wav3)
+    pos = env.decoder._parse_metadata(flac1)[4]
+    for name, at in (("config1.badframe.flac", pos + (len(flac1) - pos) // 2),
+                     ("config1.badmd5.flac", 26)):  # 26: inside STREAMINFO's MD5
+        bad = bytearray(flac1)
+        bad[at] ^= 0xFF
+        with open(os.path.join(tmp, name), "wb") as f:
+            f.write(bytes(bad))
+    p = lambda name: os.path.join(tmp, name)
     lpc_ogg = ["--ogg", "--prediction", "lpc"]
-    out_d, out_cpu = os.path.join(tmp, "cli_d.oga"), os.path.join(tmp, "cli_d.cpu.oga")
-    wall_d, rss_d, _ = run_cli([wav3_path, out_d, *lpc_ogg, *device])
+    jobs = {  # name -> (arguments, expected exit code)
+        # the fixed cost: torch, the CUDA context and one one-frame batch
+        "one_block": ([one, p("one_block.flac"), *device], 0),
+        "a_config1": ([wav1_path, p("cli_a.flac"), *device], 0),
+        "b_long": ([long_file["wav"], p("cli_b.flac"), *LONG_FLAGS, *device], 0),
+        "c_batch": (["--batch", album["indir"], p("cli_batch"), *device], 0),
+        "d_config3_ogg": ([wav3_path, p("cli_d.oga"), *lpc_ogg, *device], 0),
+        "e_verify": ([wav1_path, p("cli_e.flac"), "--verify", *device], 0),
+        "f_decode": (["-d", flac1_path, p("cli_f.wav"), *device], 0),
+        "g_test": (["-t", flac1_path, *device], 0),
+        "h_test_bad_frame": (["-t", p("config1.badframe.flac"), *device], 2),
+        "i_test_bad_md5": (["-t", p("config1.badmd5.flac"), *device], 3),
+        "j_list": (["-l", flac1_path], 0),
+    }
     from zigflac_tpu_torch.cli import main as cli_main
 
-    if cli_main([wav3_path, out_cpu, *lpc_ogg, "--device", "cpu"]) != 0:
-        raise AssertionError("the CPU port's CLI failed on config 3")
-    got = _read(out_d)
-    if got[:4] != b"OggS" or got != _read(out_cpu):
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CLI_CHILDREN_AT_ONCE) as pool:
+        futures = {name: pool.submit(run_cli, args, expect=code)
+                   for name, (args, code) in jobs.items()}
+        # (d)'s reference from the CPU port, in this process meanwhile
+        if cli_main([wav3_path, p("cli_d.cpu.oga"), *lpc_ogg, "--device", "cpu"]) != 0:
+            raise AssertionError("the CPU port's CLI failed on config 3")
+        done = {name: f.result() for name, f in futures.items()}
+    pool_wall = time.perf_counter() - t0
+    cli = {name: dict(wall_s=w, peak_rss_bytes=r, exit=jobs[name][1])
+           for name, (w, r, _) in done.items()}
+
+    if _sha(_read(p("cli_a.flac"))) != want1 or _sha(_read(p("cli_e.flac"))) != want1:
+        raise AssertionError("cli (a, e): config 1 differs from the pinned stream")
+    if _read(p("cli_b.flac")) != _read(long_file["flac"]):
+        raise AssertionError("cli (b): the 40-minute file differs from encode_file's")
+    rss_a, rss_b = cli["a_config1"]["peak_rss_bytes"], cli["b_long"]["peak_rss_bytes"]
+    rss_room = (long_file["wav_size"] - os.path.getsize(wav1_path)) / 4
+    if rss_b - rss_a >= rss_room:
+        raise AssertionError(f"cli (b) peak RSS {rss_b} B exceeds (a)'s {rss_a} B by a "
+                             f"quarter of the WAV size difference or more")
+    for name, path in album["outs"].items():
+        if _read(os.path.join(p("cli_batch"), name[:-4] + ".flac")) != _read(path):
+            raise AssertionError(f"cli (c): {name} differs from encode_files'")
+    got = _read(p("cli_d.oga"))
+    if got[:4] != b"OggS" or got != _read(p("cli_d.cpu.oga")):
         raise AssertionError("cli (d): config 3 Ogg-FLAC differs from the CPU port's")
-    cli["d_config3_ogg"] = dict(wall_s=wall_d, peak_rss_bytes=rss_d)
+    if "verify: ok" not in done["e_verify"][2].splitlines():
+        raise AssertionError(f"cli (e): no 'verify: ok' line:\n{done['e_verify'][2][-2000:]}")
+    if _read(p("cli_f.wav")) != _read(wav1_path):
+        raise AssertionError("cli (f): the decoded WAV differs from the input")
+    for name, word in (("g_test", ": ok ("), ("h_test_bad_frame", ": FAILED ("),
+                       ("i_test_bad_md5", "FAILED (MD5 mismatch)"), ("j_list", "STREAMINFO")):
+        if word not in done[name][2]:
+            raise AssertionError(f"cli ({name}): no {word!r} in\n{done[name][2][-2000:]}")
     # RUSAGE_CHILDREN reads at least this process's own peak (see
     # _CLI_WITH_PEAK), printed beside it; the check uses each child's own peak
-    _log("9-cli", runs=cli, rusage_children_max_rss_after_a=children_a,
-         rusage_children_max_rss_after_b=children_b,
+    _log("11-cli", at_once=CLI_CHILDREN_AT_ONCE, pool_wall_s=pool_wall, runs=cli,
+         rusage_children_max_rss=resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024,
          this_process_max_rss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
          rss_b_minus_a=rss_b - rss_a, rss_room=rss_room, all_equal=True)
 
@@ -525,9 +777,11 @@ def _rand_stream(rng, n, s, max_nbv=20, gap=4, kill=0.0, full64=False):
 
 # -- timing -------------------------------------------------------------------
 
-def cuda_ms(torch, fn, reps=20):
-    """Mean milliseconds of fn() over reps launches, after one warm-up."""
-    fn()
+def cuda_ms(torch, fn, reps=20, warm=True):
+    """Mean milliseconds of fn() over reps launches, after one warm-up
+    unless the caller has already made it."""
+    if warm:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -559,7 +813,8 @@ def main() -> int:
     import zigflac_tpu_torch as zt
     from zigflac_tpu_torch.models import pipeline as pl
     from zigflac_tpu_torch.native import md5
-    from zigflac_tpu_torch.ops import _build, analyze, bitpack, deposit, lpc
+    from zigflac_tpu_torch import decoder
+    from zigflac_tpu_torch.ops import _build, analyze, bitpack, deposit, lpc, synth
     from zigflac_tpu_torch.utils import stages
     from zigflac_tpu_torch.wav import WavReader, write_wav
 
@@ -567,10 +822,12 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # -- phase 1 --------------------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    # nvcc and g++ side by side, and the inputs made meanwhile
     t0 = time.perf_counter()
-    _build.library()
-    _log("1", build_s=round(time.perf_counter() - t0, 3), nvcc_s=_build.BUILD_SECONDS,
-         ptxas=_build.BUILD_LOG.strip().splitlines()[-4:])
+    pool = ThreadPoolExecutor(2)
+    builds = [pool.submit(_build.library), pool.submit(_build.native_module)]
 
     # -- inputs ---------------------------------------------------------------
     wav1 = bench_wav(write_wav, CONFIG1_SECONDS * RATE)
@@ -587,6 +844,13 @@ def main() -> int:
     wav_noise = buf.getvalue()
     cfg1 = zt.EncoderConfig.default(2)
     cfg_lpc = replace(cfg1, prediction="lpc")
+    inputs_s = time.perf_counter() - t0
+    for b in builds:
+        b.result()
+    pool.shutdown()
+    _log("1", build_and_inputs_s=round(time.perf_counter() - t0, 3), inputs_s=inputs_s,
+         nvcc_s=_build.BUILD_SECONDS, gxx_s=_build.NATIVE_BUILD_SECONDS,
+         ptxas=[ln for ln in _build.BUILD_LOG.splitlines() if "Used" in ln or "spill" in ln])
 
     # -- phase 2: kernel against plain on the card ----------------------------
     rng = np.random.default_rng(0xF1AC)
@@ -688,16 +952,29 @@ def main() -> int:
 
     def counted(path, fn):
         """Run one encode path with the counts at 0 before it; it must
-        launch the kernel and never call the plain version."""
+        launch the deposit kernel and never call a plain version."""
         deposit.reset_counts()
+        synth.reset_counts()
         out = fn()
         torch.cuda.synchronize()
         k, g, p = deposit.KERNEL_LAUNCHES, deposit.GLOBAL_ROW_LAUNCHES, deposit.PLAIN_CALLS
-        if k == 0 or p != 0:
+        if k == 0 or p != 0 or synth.PLAIN_CALLS != 0:
             raise AssertionError(f"{path}: {k} kernel launches, {p} plain calls")
         launches["total"] += k
         launches["global_rows"] += g
         return out, k, g
+
+    def counted_decode(path, fn):
+        """Run one decode path with the counts at 0 before it; it must
+        launch the synthesis kernel and never call a plain version."""
+        deposit.reset_counts()
+        synth.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        k, p = synth.KERNEL_LAUNCHES, synth.PLAIN_CALLS + deposit.PLAIN_CALLS
+        if k == 0 or p != 0:
+            raise AssertionError(f"{path}: {k} synthesis launches, {p} plain calls")
+        return out, k
 
     def check(path, flac, want_bytes, want_sha):
         if len(flac) != want_bytes or _sha(flac) != want_sha:
@@ -750,6 +1027,7 @@ def main() -> int:
     (flac, k, _) = counted("config 1", lambda: zt.encode_wav_bytes(wav1, device=dev))
     wall = time.perf_counter() - t0
     check("config 1", flac, CONFIG1_FLAC_BYTES, CONFIG1_FLAC_SHA)
+    flac1 = flac
     _log("4", flac_bytes=len(flac), ratio=len(flac) / len(wav1), wall_s=wall,
          x_realtime=CONFIG1_SECONDS / wall,
          peak_mem_bytes=torch.cuda.max_memory_allocated(), kernel_launches=k, plain_calls=0)
@@ -804,6 +1082,7 @@ def main() -> int:
     (flac, wall, per_batch), k, _ = counted(
         "config 3", lambda: timed_encode(wav3, cfg_lpc))
     check("config 3", flac, CONFIG3_FLAC_BYTES, CONFIG3_FLAC_SHA)
+    flac3 = flac
     seconds3 = CONFIG3_SAMPLES / RATE
     _log("5", flac_bytes=len(flac), ratio=len(flac) / len(wav3), wall_s=wall,
          x_realtime=seconds3 / wall, kernel_launches=k, stages_ms=per_batch)
@@ -848,6 +1127,7 @@ def main() -> int:
         (flac, wall, per_batch), k, g = counted(
             f"32-bit {pred}", lambda: timed_encode(wav32, replace(cfg1, prediction=pred)))
         check(f"32-bit {pred}", flac, nbytes, sha)
+        flac32 = flac  # the last one, LPC, goes on to the decode phases
         _log("6", prediction=pred, flac_bytes=len(flac), ratio=len(flac) / len(wav32),
              wall_s=wall, x_realtime=seconds32 / wall, kernel_launches=k,
              global_row_launches=g, stages_ms=per_batch)
@@ -859,21 +1139,29 @@ def main() -> int:
     _log("6-noise", frames=NOISE32_FRAMES, flac_bytes=len(flac), equals_cpu=True,
          kernel_launches=k, global_row_launches=g)
 
-    # -- phases 7-9: config 2, the config-4 album, streaming and the CLI ------
+    # -- phase 2, the synthesis kernel's half, and phases 7-11 ----------------
     import tempfile
     from types import SimpleNamespace
 
-    env = SimpleNamespace(zt=zt, dev=dev, counted=counted, check=check,
+    env = SimpleNamespace(zt=zt, dev=dev, torch=torch, counted=counted,
+                          counted_decode=counted_decode, check=check,
                           timed_encode=timed_encode, sync=torch.cuda.synchronize,
-                          pipeline_cls=pl.DevicePipeline)
-    wav2 = phase7_config2(env, write_wav)
+                          pipeline_cls=pl.DevicePipeline, decoder=decoder, synth=synth,
+                          build=_build)
+    synth_entry = phase2_synth(env, {"config1": (flac1, 16), "config3": (flac3, 16),
+                                     "depth32_lpc": (flac32, 32)})
+    wav2, flac2 = phase7_config2(env, write_wav)
     with tempfile.TemporaryDirectory(prefix="zf_smoke_") as tmp:
         album = phase8_album(env, tmp, wav1, wav2, {"config1.wav": CONFIG1_FLAC_SHA,
                                                    "config2.wav": CONFIG2_FLAC_SHA})
-        phase9_stream_and_cli(env, tmp, album, wav3, CONFIG1_FLAC_SHA)
+        long_file = phase9_stream(env, tmp)
+        synth_entry["launches"] = phase10_decode(
+            env, tmp, {"config1": (flac1, wav1), "config2": (flac2, wav2),
+                       "config3": (flac3, wav3), "depth32_lpc": (flac32, wav32)}, long_file)
+        phase11_cli(env, tmp, album, long_file, wav3, CONFIG1_FLAC_SHA)
     _log("end", wall_s=time.perf_counter() - t_start)
 
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"kernels": [synth_entry, {
         "name": "deposit_words",
         "route": "cuda",
         "source": "zigflac_tpu_torch/csrc/deposit.cu",

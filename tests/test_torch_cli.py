@@ -2,10 +2,16 @@
 called in-process with ``--device cpu``, against the JAX package's CLI on
 its device backend under JAX_PLATFORMS=cpu: single file with the metadata
 flags, ``--batch`` over a directory, Ogg-FLAC output, ``--stats``, the exit
-codes, and the flags whose modes are not ported.
+codes, the decode-side modes (``-d`` with ``--range``, ``--verify`` and
+``--threads``, ``-t``, ``-l``, ``--verify`` after an encode), and the edit
+flags, whose mode is not ported.
 
-Tolerance: exact equality of the output bytes."""
+Tolerance: exact equality of the output bytes, and of the printed lines
+once the milliseconds they report are masked."""
 
+import re
+
+import numpy as np
 import pytest
 import torch
 
@@ -107,18 +113,21 @@ def test_exit_codes(tmp_path, rng, case, code):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flag", [["-d"], ["--decode"], ["-l"], ["--list"], ["-t"], ["--test"],
-                                  ["-e"], ["--edit"], ["--verify"], ["--range", "0:1"],
-                                  ["--threads", "2"], ["--remove-tag", "A"]])
+@pytest.mark.parametrize("flag", [["-e"], ["--edit"], ["--remove-tag", "A"],
+                                  ["--remove-pictures"], ["--export-picture", "p.png"],
+                                  ["--import-tags-from", "t.txt"],
+                                  ["--set-application", "abcd=f"],
+                                  ["--remove-application", "abcd"], ["--remove-cuesheet"],
+                                  ["-e", "--tag", "A=b"]])
 def test_unported_modes_are_refused(tmp_path, rng, flag, capsys):
-    """The decode-side and edit modes are not defined yet: argparse refuses
-    them with exit 1 and nothing is written."""
+    """The edit mode and its options are not ported yet: the CLI refuses
+    them with exit 1, says where the work is queued, and writes nothing."""
     wav = _write(tmp_path / "in.wav", rng, 1000)
     out = tmp_path / "o.flac"
     with pytest.raises(SystemExit) as exc:
         cli.main([wav, str(out), "--device", "cpu", *flag])
     assert exc.value.code == 1
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert "ROADMAP.md item 13" in capsys.readouterr().err
     assert not out.exists()
 
 
@@ -145,3 +154,169 @@ def test_profile_writes_a_torch_trace(tmp_path, rng):
     with open(wav, "rb") as f:
         assert out.read_bytes() == zt.encode_wav_bytes(
             f.read(), config=zt.EncoderConfig(block_size=1024), device="cpu")
+
+
+# -- the decode-side modes -----------------------------------------------------
+
+def _masked(text):
+    """The printed lines with the times they report masked."""
+    return re.sub(r"[0-9.]+ ms|[0-9]+x realtime", "T", text)
+
+
+def _both(capsys, port_argv, jax_argv):
+    """Run the port's CLI and the JAX package's; returns their exit codes
+    after holding the printed lines of the two against each other."""
+    capsys.readouterr()
+    port_rc = cli.main(port_argv)
+    port_out = capsys.readouterr()
+    jax_rc = jax_cli.main(jax_argv)
+    jax_out = capsys.readouterr()
+    assert _masked(port_out.out) == _masked(jax_out.out)
+    assert _masked(port_out.err) == _masked(jax_out.err)
+    return port_rc, jax_rc
+
+
+@pytest.fixture(scope="module")
+def flac_file(tmp_path_factory):
+    """A WAV and its FLAC from the port's CLI (tags, SEEKTABLE, PADDING and a
+    PICTURE), and damaged copies: a flipped frame byte, a flipped MD5."""
+    d = tmp_path_factory.mktemp("cli_decode")
+    rng = np.random.default_rng(0xD3C0)
+    wav = _write(d / "in.wav", rng, 9 * 1024 + 77)
+    png = d / "cover.png"
+    png.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
+    flac = d / "a.flac"
+    assert cli.main([wav, str(flac), "--device", "cpu", *BLOCK, "--tag", "TITLE=decode me",
+                     "--seek-interval", "0.05", "--padding", "64", "--picture", str(png)]) == 0
+    data = flac.read_bytes()
+    for name, at in (("crc.flac", len(data) // 2), ("md5.flac", 26)):
+        bad = bytearray(data)
+        bad[at] ^= 0xFF
+        (d / name).write_bytes(bytes(bad))
+    oga = d / "a.oga"
+    assert cli.main([wav, str(oga), "--device", "cpu", *BLOCK, "--tag", "TITLE=ogg"]) == 0
+    return d
+
+
+@pytest.mark.parametrize("how", [["--device", "cpu"], ["--threads", "1"], ["--threads", "3"],
+                                 ["--device", "cpu", "--verify", "--stats"]],
+                         ids=["device", "threads1", "threads3", "verify_stats"])
+@pytest.mark.parametrize("name", ["a.flac", "a.oga"])
+def test_decode_writes_the_jax_cli_wav(flac_file, tmp_path, capsys, name, how):
+    """``-d`` on the device backend, on the all-C++ path, and with
+    ``--verify --stats``: the input WAV comes back byte for byte."""
+    src = str(flac_file / name)
+    jax_how = [a for a in how if a not in ("--device", "cpu")]
+    rcs = _both(capsys, ["-d", src, str(tmp_path / "port.wav"), *how],
+                ["-d", src, str(tmp_path / "jax.wav"), *jax_how])
+    assert rcs == (0, 0)
+    got = (tmp_path / "port.wav").read_bytes()
+    assert got == (tmp_path / "jax.wav").read_bytes() == (flac_file / "in.wav").read_bytes()
+
+
+@pytest.mark.parametrize("name,code", [("a.flac", 0), ("a.oga", 0), ("crc.flac", 2),
+                                       ("md5.flac", 3), ("missing.flac", 1), ("in.wav", 2)])
+@pytest.mark.parametrize("how", [["--device", "cpu"], ["--threads", "2"]], ids=["device", "native"])
+def test_test_mode_equals_jax_cli(flac_file, capsys, name, code, how):
+    """``-t``: the verdict line and the exit code (0 ok, 2 malformed or a
+    frame CRC, 3 an MD5 mismatch, 1 no such file) are the JAX CLI's."""
+    src = str(flac_file / name)
+    assert _both(capsys, ["-t", src, *how], ["-t", src]) == (code, code)
+
+
+def test_decode_with_verify_reports_an_md5_mismatch(flac_file, tmp_path, capsys):
+    src = str(flac_file / "md5.flac")
+    assert _both(capsys, ["-d", src, str(tmp_path / "p.wav"), "--device", "cpu", "--verify"],
+                 ["-d", src, str(tmp_path / "j.wav"), "--verify"]) == (3, 3)
+    # without --verify the MD5 is not looked at
+    assert cli.main(["-d", src, str(tmp_path / "p.wav"), "--device", "cpu"]) == 0
+    assert (tmp_path / "p.wav").read_bytes() == (flac_file / "in.wav").read_bytes()
+    assert _both(capsys, ["-d", str(flac_file / "crc.flac"), str(tmp_path / "p.wav"),
+                          "--device", "cpu"],
+                 ["-d", str(flac_file / "crc.flac"), str(tmp_path / "j.wav")]) == (2, 2)
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["single", "batch"])
+@pytest.mark.parametrize("ogg", [False, True], ids=["flac", "ogg"])
+def test_verify_after_encode_equals_jax_cli(tmp_path, rng, capsys, batch, ogg):
+    """``--verify`` decodes what was just written with the port's own
+    decoder and prints ``verify: ok``."""
+    indir = tmp_path / "wavs"
+    indir.mkdir()
+    for i in range(2):
+        _write(indir / f"f{i}.wav", rng, 2 * 1024 + 9 + i)
+    flags = [*BLOCK, "--verify"] + (["--ogg"] if ogg else [])
+    if batch:
+        port, jax = ["--batch", str(indir), str(tmp_path / "p")], ["--batch", str(indir),
+                                                                   str(tmp_path / "j")]
+    else:
+        port, jax = [str(indir / "f0.wav"), str(tmp_path / "p.flac")], [str(indir / "f0.wav"),
+                                                                       str(tmp_path / "j.flac")]
+    assert _both(capsys, port + flags + ["--device", "cpu"],
+                 jax + flags + ["--backend", "device"]) == (0, 0)
+    cli.main(port + flags + ["--device", "cpu"])
+    assert capsys.readouterr().out == ("verify: ok (2 files)\n" if batch else "verify: ok\n")
+
+
+def test_verify_failure_exits_3(tmp_path, rng, capsys, monkeypatch):
+    """A stream that does not verify after the encode: exit 3, as the JAX
+    CLI (the damage is done by a decoder that rejects everything)."""
+    from zigflac_tpu_torch import decoder
+
+    wav = _write(tmp_path / "in.wav", rng, 1024 + 9)
+    monkeypatch.setattr(decoder, "verify_flac", lambda data, **kw: False)
+    assert cli.main([wav, str(tmp_path / "o.flac"), "--device", "cpu", "--verify", *BLOCK]) == 3
+    assert capsys.readouterr().err == "verify: FAILED\n"
+    assert cli.main(["--batch", str(tmp_path), str(tmp_path / "out"), "--device", "cpu",
+                     "--verify", *BLOCK]) == 3
+    assert capsys.readouterr().err == "verify: FAILED (in.wav)\n"
+
+
+@pytest.mark.parametrize("name,code", [("a.flac", 0), ("a.oga", 0), ("md5.flac", 0),
+                                       ("in.wav", 2), ("missing.flac", 1)])
+def test_list_equals_jax_cli(flac_file, capsys, monkeypatch, name, code):
+    """``-l`` prints the JAX CLI's block listing, and needs no device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = str(flac_file / name)
+    assert _both(capsys, ["-l", src], ["-l", src]) == (code, code)
+    if name == "a.flac":
+        cli.main(["-l", src])
+        out = capsys.readouterr().out
+        for part in ("STREAMINFO: 34 bytes", "44100 Hz, 2 ch, 16-bit, 9293 samples",
+                     "SEEKTABLE", "TITLE=decode me", "PICTURE", "PADDING: 64 bytes"):
+            assert part in out
+
+
+@pytest.mark.parametrize("span,code", [("0.05:0.1", 0), ("0:0.01", 0), ("0.2:9", 0),
+                                       ("0.1:0.05", 1), ("abc", 1), ("5:6", 2)])
+@pytest.mark.parametrize("name", ["a.flac", "a.oga"])
+def test_range_equals_jax_cli(flac_file, tmp_path, capsys, name, span, code):
+    """``-d --range``: the slice's WAV and the printed line are the JAX
+    CLI's; a malformed range exits 1 and one past the stream's end 2."""
+    src = str(flac_file / name)
+    rcs = _both(capsys, ["-d", src, str(tmp_path / "p.wav"), "--range", span, "--device", "cpu"],
+                ["-d", src, str(tmp_path / "j.wav"), "--range", span])
+    assert rcs == (code, code)
+    if code == 0:
+        assert (tmp_path / "p.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+    else:
+        assert not (tmp_path / "p.wav").exists()
+
+
+def test_decode_needs_an_output_path(flac_file, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["-d", str(flac_file / "a.flac"), "--device", "cpu"])
+    assert exc.value.code == 1 and "output path required" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", [["-d"], ["-t"], ["-d", "--range", "0:0.1"]],
+                         ids=["decode", "test", "range"])
+def test_decode_modes_without_a_card_exit_nonzero(flac_file, tmp_path, monkeypatch, capsys, mode):
+    """The decode-side modes default to cuda too; ``--threads`` asks for the
+    all-C++ path, which needs no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [*mode, str(flac_file / "a.flac")] + ([] if mode == ["-t"] else [str(tmp_path / "o.wav")])
+    assert cli.main(argv) == 1
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+    assert not (tmp_path / "o.wav").exists()
+    assert cli.main(argv + ["--threads", "2"]) == 0

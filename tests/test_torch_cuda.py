@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the deposit kernel against its plain version,
-and whole encodes on the card against the CPU path. Every test skips where
+"""The port on a CUDA card: the deposit and synthesis kernels against their
+plain versions, and whole encodes and decodes on the card against the CPU
+path. Every test skips where
 torch.cuda.is_available() is false. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
 
@@ -16,7 +17,7 @@ import torch
 import zigflac_tpu_torch
 from zigflac_tpu_torch import EncoderConfig
 from zigflac_tpu_torch.models import pipeline
-from zigflac_tpu_torch.ops import deposit
+from zigflac_tpu_torch.ops import deposit, synth
 from zigflac_tpu_torch.wav import write_wav
 
 pytestmark = pytest.mark.cuda
@@ -25,7 +26,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def rng():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the deposit kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return np.random.default_rng(0xC0DA)
 
 
@@ -198,3 +199,87 @@ def test_cli_on_card_equals_cpu(rng, tmp_path, ogg):
     got = (tmp_path / "gpu.flac").read_bytes()
     assert got == (tmp_path / "cpu.flac").read_bytes()
     assert got[:4] == (b"OggS" if ogg else b"fLaC")
+
+
+def _subframes(rng, m, b, max_order=32, bits=33, wrap=False):
+    """Random normalized subframes: orders 0..max_order with coefficients
+    zero beyond the order, shifts 0-15, wasted 0-3; ``wrap`` takes values
+    and coefficients of 62 bits, so the sums pass 2^63."""
+    order = rng.integers(0, max_order + 1, m)
+    qbits = 62 if wrap else 15
+    q = rng.integers(-(1 << (qbits - 1)), 1 << (qbits - 1), (m, 32))
+    q[np.arange(32)[None, :] >= order[:, None]] = 0
+    vbits = 62 if wrap else bits
+    values = rng.integers(-(1 << (vbits - 1)), 1 << (vbits - 1), (m, b))
+    return values, q, rng.integers(0, 16, m), order, rng.integers(0, 4, m)
+
+
+@pytest.mark.parametrize(
+    "m,b,kw",
+    [
+        (1024, 4096, dict(max_order=4)),   # a batch of fixed predictors
+        (1024, 4096, dict(max_order=8)),   # LPC order 8
+        (100, 4096, dict()),               # orders up to 32
+        (3001, 257, dict()),               # M not a multiple of the warp
+        (1, 4096, dict()),
+        (37, 1, dict()),                   # a one-sample tail
+        (5, 65535, dict()),                # the format's largest block
+        (64, 1000, dict(wrap=True)),       # sums past 2^63 wrap as int64
+    ],
+)
+def test_synth_kernel_matches_plain(rng, m, b, kw):
+    args = [torch.from_numpy(a).cuda() for a in _subframes(rng, m, b, **kw)]
+    synth.reset_counts()
+    got = synth.synthesize_batch(*args)
+    assert (synth.KERNEL_LAUNCHES, synth.PLAIN_CALLS) == (1, 0)
+    torch.testing.assert_close(got, synth.synthesize_batch_plain(*args), rtol=0, atol=0)
+
+
+def test_synth_kernel_refuses_what_it_does_not_take(rng):
+    v, q, sh, o, w = [torch.from_numpy(a).cuda() for a in _subframes(rng, 4, 64)]
+    with pytest.raises(TypeError):
+        synth.synthesize_batch(v.to(torch.int32), q, sh, o, w)
+    with pytest.raises(ValueError):
+        synth.synthesize_batch(v.t().contiguous().t(), q, sh, o, w)
+    with pytest.raises(ValueError):
+        synth.synthesize_batch(v, q, sh + 64, o, w)
+    with pytest.raises(ValueError):
+        synth.synthesize_batch(v, q.cpu(), sh, o, w)
+
+
+@pytest.mark.parametrize("depth,fields", [(16, dict()), (24, dict(prediction="lpc")),
+                                          (32, dict(prediction="lpc", wasted_bits=True))],
+                         ids=["fixed16", "lpc24", "lpc32"])
+def test_decode_on_card_equals_cpu(rng, depth, fields):
+    from zigflac_tpu_torch import decoder
+    from zigflac_tpu_torch.wav import WavReader
+
+    wav = _wav(rng, 3 * 4096 + 777, 2, depth)
+    flac = zigflac_tpu_torch.encode_wav_bytes(wav, config=EncoderConfig(**fields), device="cuda")
+    synth.reset_counts()
+    got = decoder.decode_flac(flac, device="cuda")
+    assert synth.KERNEL_LAUNCHES == 2 and synth.PLAIN_CALLS == 0  # full frames, then the tail
+    want = decoder.decode_flac(flac, device="cpu")
+    np.testing.assert_array_equal(got.samples, want.samples)
+    np.testing.assert_array_equal(got.samples, WavReader.from_bytes(wav).planar_samples())
+    assert got.md5_ok and want.md5_ok and got.frame_count == want.frame_count == 4
+    assert decoder.verify_flac(flac, device="cuda")
+    np.testing.assert_array_equal(
+        decoder.decode_range(flac, 4000, 5000, device="cuda"), want.samples[:, 4000:9000])
+
+
+def test_decode_cli_on_card(rng, tmp_path):
+    from zigflac_tpu_torch import cli
+
+    wav, flac, back = tmp_path / "in.wav", tmp_path / "a.flac", tmp_path / "back.wav"
+    wav.write_bytes(_wav(rng, 2 * 4096 + 17))
+    assert cli.main([str(wav), str(flac), "--device", "cuda", "--verify"]) == 0
+    synth.reset_counts()
+    assert cli.main(["-d", str(flac), str(back), "--device", "cuda", "--verify"]) == 0
+    assert synth.KERNEL_LAUNCHES > 0 and synth.PLAIN_CALLS == 0
+    assert back.read_bytes() == wav.read_bytes()
+    assert cli.main(["-t", str(flac), "--device", "cuda"]) == 0
+    bad = bytearray(flac.read_bytes())
+    bad[len(bad) // 2] ^= 0xFF
+    (tmp_path / "bad.flac").write_bytes(bytes(bad))
+    assert cli.main(["-t", str(tmp_path / "bad.flac"), "--device", "cuda"]) == 2

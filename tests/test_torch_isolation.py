@@ -21,10 +21,11 @@ COPIES = ["crc.py", "metadata.py", "native.py", "ogg.py", "wav.py", "utils/confi
 
 
 def test_every_module_is_checked():
-    """The checks below cover every module of the port, the LPC module
-    included."""
+    """The checks below cover every module of the port, the LPC module and
+    the decoder's modules included."""
     assert {"zigflac_tpu_torch.ops.lpc", "zigflac_tpu_torch.ops.analyze",
-            "zigflac_tpu_torch.ops.deposit"} <= set(PORT_MODULES)
+            "zigflac_tpu_torch.ops.deposit", "zigflac_tpu_torch.decoder",
+            "zigflac_tpu_torch.ops.synth"} <= set(PORT_MODULES)
 
 
 def test_port_imports_without_jax():

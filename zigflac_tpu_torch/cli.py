@@ -1,14 +1,18 @@
-"""wav2flac CLI on a torch device: the encode modes.
+"""wav2flac CLI on a torch device: encode, decode, test, list and verify.
 
 ``python -m zigflac_tpu_torch.cli in_file.wav out_file.flac [--device cpu]``
 
 Matches the reference CLI contract (src/main.zig:9-42): exit 1 on usage or
-file error, exit 2 on a WAV format FLAC cannot represent. The encode flags
-are the JAX package's (block size, prediction mode, Rice limits, LPC order,
-wasted bits, tags, SEEKTABLE, PADDING, PICTURE, CUESHEET, Ogg-FLAC output,
-``--batch`` over a directory); ``--device`` picks the torch device, the
-card unless the caller asks for the CPU. The decode-side modes are not
-here yet.
+file error, exit 2 on a WAV format FLAC cannot represent or a malformed
+FLAC stream, exit 3 on a verification failure. The flags are the JAX
+package's: the encode flags (block size, prediction mode, Rice limits, LPC
+order, wasted bits, tags, SEEKTABLE, PADDING, PICTURE, CUESHEET, Ogg-FLAC
+output, ``--batch`` over a directory, ``--verify``) and the decode-side
+modes (``-d/--decode`` with ``--range`` and ``--verify``, ``-t/--test``,
+``-l/--list``). ``--device`` picks the torch device, the card unless the
+caller asks for the CPU; ``--threads N`` decodes on the all-C++ path with N
+worker threads instead, which touches no device. ``-e/--edit`` and its
+options are refused until the metadata editor is ported.
 """
 
 from __future__ import annotations
@@ -28,13 +32,55 @@ class _Parser(argparse.ArgumentParser):
         raise SystemExit(1)
 
 
+# the options of -e/--edit and where argparse stores them
+_EDIT_DEST = {
+    "--remove-tag": "remove_tags", "--set-application": "set_applications",
+    "--remove-application": "remove_applications", "--export-picture": "export_picture",
+    "--import-tags-from": "import_tags_from", "--remove-pictures": "remove_pictures",
+    "--remove-cuesheet": "remove_cuesheet",
+}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(
         prog="wav2flac",
-        description="FLAC encoder on a torch device (zigflac_tpu_torch)",
+        description="FLAC encoder and decoder on a torch device (zigflac_tpu_torch)",
     )
-    p.add_argument("input", help="input WAV file (a directory of WAVs with --batch)")
-    p.add_argument("output", help="output FLAC file (output directory with --batch)")
+    p.add_argument(
+        "input",
+        help="input WAV file (FLAC with --decode; a directory of WAVs with --batch)",
+    )
+    p.add_argument(
+        "output", nargs="?", default=None,
+        help="output FLAC file (WAV with --decode; output directory with "
+        "--batch; omitted with --list and --test)",
+    )
+    p.add_argument(
+        "-d", "--decode", action="store_true",
+        help="decode FLAC to WAV instead of encoding (flac2wav)",
+    )
+    p.add_argument(
+        "-l", "--list", action="store_true", dest="list_meta",
+        help="print the metadata of a FLAC / Ogg-FLAC file (no output "
+        "file) and exit",
+    )
+    p.add_argument(
+        "-t", "--test", action="store_true",
+        help="verify a FLAC / Ogg-FLAC file (every frame CRC + the "
+        "STREAMINFO MD5) without writing any output; exit 0 ok, 2 "
+        "malformed, 3 verification failure",
+    )
+    # the metadata editor is not ported: these are accepted only to be
+    # refused with one message (see main)
+    p.add_argument("-e", "--edit", action="store_true", help=argparse.SUPPRESS)
+    for flag in ("--remove-tag", "--set-application", "--remove-application"):
+        p.add_argument(flag, action="append", default=[], dest=_EDIT_DEST[flag],
+                       help=argparse.SUPPRESS)
+    for flag in ("--export-picture", "--import-tags-from"):
+        p.add_argument(flag, default=None, dest=_EDIT_DEST[flag], help=argparse.SUPPRESS)
+    for flag in ("--remove-pictures", "--remove-cuesheet"):
+        p.add_argument(flag, action="store_true", dest=_EDIT_DEST[flag],
+                       help=argparse.SUPPRESS)
     p.add_argument(
         "--batch", action="store_true",
         help="encode every .wav in the input directory into the output "
@@ -51,8 +97,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device", default="cuda",
-        help="torch device to encode on (default cuda; without a card it is "
-        "an error, never a fallback to the CPU)",
+        help="torch device to encode and decode on (default cuda; without a "
+        "card it is an error, never a fallback to the CPU)",
+    )
+    p.add_argument(
+        "--verify", action="store_true",
+        help="decode the output and verify CRCs + MD5 round-trip",
+    )
+    p.add_argument(
+        "--threads", type=int, default=None, metavar="N",
+        help="with --decode or --test: decode on the all-C++ path with N "
+        "worker threads instead of the device; output is byte-identical at "
+        "any thread count",
     )
     p.add_argument("--stats", action="store_true", help="print throughput stats")
     p.add_argument(
@@ -76,15 +132,226 @@ def build_parser() -> argparse.ArgumentParser:
         help="import a standard .cue sheet as a CUESHEET metadata block",
     )
     p.add_argument(
+        "--range", metavar="START:END", default=None, dest="time_range",
+        help="with --decode: decode only this time range (seconds), using "
+        "the SEEKTABLE to skip ahead when present",
+    )
+    p.add_argument(
         "--ogg", action="store_true",
-        help="write Ogg-FLAC (.oga) instead of native FLAC. Implied by a "
-        ".oga/.ogg output extension",
+        help="write Ogg-FLAC (.oga) instead of native FLAC (encode side; "
+        "decode auto-detects the container). Implied by a .oga/.ogg "
+        "output extension",
     )
     p.add_argument(
         "--profile", metavar="DIR", default=None,
         help="write a torch.profiler trace of the encode to DIR/trace.json",
     )
     return p
+
+
+def _decode_range_main(args, device, backend) -> int:
+    """--decode --range START:END — random-access decode (decoder.
+    decode_range rides the SEEKTABLE + the C++ batch parser) of a time
+    slice, written as a standalone WAV."""
+    from .decoder import FlacDecodeError, _parse_metadata, decode_range
+    from .ogg import is_ogg, ogg_to_flac
+    from .wav import write_wav
+
+    try:
+        a, _, b = args.time_range.partition(":")
+        t0s, t1s = float(a), float(b)
+        if t1s <= t0s or t0s < 0:
+            raise ValueError
+    except ValueError:
+        print(f"error: --range expects START:END seconds, got "
+              f"{args.time_range!r}", file=sys.stderr)
+        return 1
+    try:
+        with open(args.input, "rb") as f:
+            data = f.read()
+        if is_ogg(data):
+            data = ogg_to_flac(data)
+        info, _v, _t, _s, _pos = _parse_metadata(data)
+        start = int(t0s * info.sample_rate)
+        n = min(
+            int(round((t1s - t0s) * info.sample_rate)),
+            info.interchannel_samples - start,
+        )
+        if n <= 0:
+            raise FlacDecodeError("range starts past the stream end")
+        samples = decode_range(data, start, n, device=device, backend=backend)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except (FlacDecodeError, EOFError, IndexError, ValueError) as e:
+        print(f"error: invalid FLAC stream ({e})", file=sys.stderr)
+        return 2
+    write_wav(args.output, samples.astype("int32"), info.sample_rate,
+              info.bit_depth)
+    print(f"decoded samples [{start}, {start + n}) "
+          f"({t0s:.3f}s..{t0s + n / info.sample_rate:.3f}s)")
+    return 0
+
+
+def _decode_main(args, device, backend) -> int:
+    """flac2wav: streaming decode + verify, write PCM WAV (decoder
+    round-trip, BASELINE config 5 — the reference has no decoder at all).
+    Host memory stays O(frame batch) via decoder.decode_file."""
+    from .decoder import FlacDecodeError, decode_file
+
+    if args.time_range is not None:
+        return _decode_range_main(args, device, backend)
+    t0 = time.perf_counter()
+    try:
+        info = decode_file(
+            args.input, args.output, check_crc=True, verify=args.verify,
+            device=device, backend=backend, threads=args.threads,
+        )
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except (FlacDecodeError, EOFError, IndexError) as e:
+        if "MD5 mismatch" in str(e):
+            print("verify: FAILED (MD5 mismatch)", file=sys.stderr)
+            return 3
+        print(f"error: invalid FLAC stream ({e})", file=sys.stderr)
+        return 2
+    dt = time.perf_counter() - t0
+    if args.stats:
+        realtime = (
+            info.interchannel_samples / info.sample_rate
+            if info.sample_rate
+            else 0
+        )
+        print(
+            f"decoded {os.path.getsize(args.input)/1e6:.2f} MB -> "
+            f"{os.path.getsize(args.output)/1e6:.2f} MB in {dt*1e3:.1f} ms"
+            + (f" = {realtime/dt:.0f}x realtime" if realtime else "")
+        )
+    if args.verify:
+        print("verify: ok")
+    return 0
+
+
+def _list_main(args) -> int:
+    """metaflac-style metadata dump: every block of a native or Ogg-FLAC
+    file, with decoded STREAMINFO / tags / seek points / picture fields
+    (the blocks metadata.zig packs; the reference ships no reader)."""
+    import mmap
+
+    from .decoder import (
+        BLOCK_NAMES,
+        FlacDecodeError,
+        metadata_blocks,
+        parse_vorbis_body,
+    )
+
+    try:
+        f = open(args.input, "rb")
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    with f:
+        data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        container = "FLAC"
+        if bytes(data[:4]) == b"OggS":
+            from .ogg import flac_streams, ogg_to_flac
+
+            container = "Ogg-FLAC"
+            try:
+                streams = flac_streams(bytes(data))
+                if len(streams) > 1:
+                    container += (
+                        f" ({len(streams)} logical streams; first shown)"
+                    )
+                data = ogg_to_flac(bytes(data))
+            except ValueError as e:
+                print(f"error: invalid stream ({e})", file=sys.stderr)
+                return 2
+        print(f"{args.input}: {container}, "
+              f"{os.path.getsize(args.input)} bytes")
+        try:
+            for btype, body in metadata_blocks(data):
+                name = BLOCK_NAMES.get(btype, f"RESERVED({btype})")
+                print(f"  {name}: {len(body)} bytes")
+                if btype == 0 and len(body) == 34:
+                    packed = int.from_bytes(body[10:18], "big")
+                    rate = packed >> 44
+                    ch = ((packed >> 41) & 7) + 1
+                    depth = ((packed >> 36) & 0x1F) + 1
+                    total = packed & ((1 << 36) - 1)
+                    secs = total / rate if rate else 0.0
+                    print(f"    {rate} Hz, {ch} ch, {depth}-bit, "
+                          f"{total} samples ({secs:.3f} s)")
+                    print(
+                        "    block size "
+                        f"{int.from_bytes(body[0:2], 'big')}.."
+                        f"{int.from_bytes(body[2:4], 'big')}, frame size "
+                        f"{int.from_bytes(body[4:7], 'big')}.."
+                        f"{int.from_bytes(body[7:10], 'big')} bytes"
+                    )
+                    print(f"    MD5 {body[18:34].hex()}")
+                elif btype == 3:
+                    print(f"    {len(body) // 18} seek points")
+                elif btype == 4:
+                    vendor, comments = parse_vorbis_body(body)
+                    print(f"    vendor: {vendor.decode('utf-8', 'replace')}")
+                    for c in comments:
+                        print(f"    {c}")
+                elif btype == 2 and len(body) >= 4:
+                    print(
+                        "    id "
+                        f"{body[:4].decode('ascii', 'replace')!r}, "
+                        f"{len(body) - 4} data bytes"
+                    )
+                elif btype == 5 and len(body) >= 396:
+                    cat = body[:128].rstrip(b"\x00").decode("ascii", "replace")
+                    print(f"    {body[395]} tracks"
+                          + (f", catalog {cat}" if cat else ""))
+                elif btype == 6 and len(body) >= 32:
+                    p = 4
+                    mlen = int.from_bytes(body[p : p + 4], "big")
+                    mime = body[p + 4 : p + 4 + mlen].decode("ascii", "replace")
+                    p += 4 + mlen
+                    dlen = int.from_bytes(body[p : p + 4], "big")
+                    p += 4 + dlen
+                    w = int.from_bytes(body[p : p + 4], "big")
+                    h = int.from_bytes(body[p + 4 : p + 8], "big")
+                    ilen = int.from_bytes(body[p + 16 : p + 20], "big")
+                    print(f"    {mime}, {w}x{h}, {ilen} image bytes")
+        except (FlacDecodeError, IndexError, EOFError) as e:
+            print(f"error: invalid FLAC stream ({e})", file=sys.stderr)
+            return 2
+    return 0
+
+
+def _test_main(args, device, backend) -> int:
+    """`flac -t` equivalent: streaming decode-and-verify (every frame CRC,
+    page CRCs for Ogg input, STREAMINFO MD5) with no output written."""
+    from .decoder import FlacDecodeError, decode_file
+
+    t0 = time.perf_counter()
+    try:
+        info = decode_file(
+            args.input, os.devnull, check_crc=True, verify=True,
+            device=device, backend=backend, threads=args.threads,
+        )
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except (FlacDecodeError, EOFError, IndexError) as e:
+        if "MD5 mismatch" in str(e):
+            print(f"{args.input}: FAILED (MD5 mismatch)", file=sys.stderr)
+            return 3
+        print(f"{args.input}: FAILED ({e})", file=sys.stderr)
+        return 2
+    dt = time.perf_counter() - t0
+    secs = (
+        info.interchannel_samples / info.sample_rate if info.sample_rate else 0
+    )
+    print(f"{args.input}: ok ({info.interchannel_samples} samples, "
+          f"{secs:.3f} s, verified in {dt*1e3:.0f} ms)")
+    return 0
 
 
 def _batch_main(args, cfg_kwargs, device) -> int:
@@ -121,6 +388,18 @@ def _batch_main(args, cfg_kwargs, device) -> int:
     dt = time.perf_counter() - t0
     total_in = sum(os.path.getsize(p) for p in in_paths)
     total_out = sum(os.path.getsize(p) for p in out_paths)
+    if args.verify:
+        from .decoder import verify_flac
+
+        bad = []
+        for f, p in zip(names, out_paths):
+            with open(p, "rb") as fh:
+                if not verify_flac(fh.read(), device=device):  # Ogg-aware
+                    bad.append(f)
+        if bad:
+            print(f"verify: FAILED ({', '.join(bad)})", file=sys.stderr)
+            return 3
+        print(f"verify: ok ({len(names)} files)")
     if args.stats:
         print(
             f"encoded {len(names)} files, {total_in/1e6:.2f} MB -> "
@@ -134,17 +413,34 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
 
+    if args.edit or any(getattr(args, dest) for dest in _EDIT_DEST.values()):
+        parser.error("-e/--edit and its options are not ported yet (ROADMAP.md item 13)")
+    if args.list_meta:
+        return _list_main(args)
+
     from .models.encoder import encode_file
     from .models.pipeline import resolve_device
     from .wav import WavFormatError, WavStreamReader
 
-    try:
-        # before any file is opened: a cuda request without a card is an
-        # error here, never a quiet fallback
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+    # --threads asks for the all-C++ decode, which touches no device
+    native = (args.decode or args.test) and args.threads is not None
+    backend = "native" if native else "device"
+    device = None
+    if backend == "device":
+        try:
+            # before any file is opened: a cuda request without a card is
+            # an error here, never a quiet fallback
+            device = resolve_device(args.device)
+        except (RuntimeError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+
+    if args.test:
+        return _test_main(args, device, backend)
+    if args.output is None:
+        parser.error("output path required (omit it only with --list/--test)")
+    if args.decode:
+        return _decode_main(args, device, backend)
 
     cfg_kwargs = dict(
         block_size=args.block_size,
@@ -241,6 +537,16 @@ def main(argv=None) -> int:
             f"= {pcm_bytes/dt/1e6:.1f} MB/s"
             + (f" = {realtime/dt:.0f}x realtime" if realtime else "")
         )
+
+    if args.verify:
+        from .decoder import verify_flac
+
+        with open(args.output, "rb") as f:
+            ok = verify_flac(f.read(), device=device)  # Ogg-aware
+        if not ok:
+            print("verify: FAILED", file=sys.stderr)
+            return 3
+        print("verify: ok")
     return 0
 
 

@@ -1,0 +1,134 @@
+"""Batch synthesis, the decoder's compute stage: the hand-written CUDA kernel
+and its plain version, and the stereo recombination.
+
+Counterpart of ``zigflac_tpu/ops/synth.py``. The host parser
+(``parse_frames`` of ``native/zf_native.cpp``) normalizes every subframe
+type to one predictor form: ``values`` (warmup samples then residuals, or
+literal samples for constant and verbatim), integer ``qcoeffs`` (q[j]
+multiplies s[i-1-j]; binomial coefficients for fixed orders, quantized LPC
+coefficients otherwise, zeros beyond the order), ``shift``, ``order`` and
+``wasted``. Synthesis is the recurrence
+s[i] = v[i] + (sum_j q[j] * s[i-1-j] >> shift) in wrapping int64, a true
+sequential scan per subframe (the per-step arithmetic shift is nonlinear),
+with all M subframes of a batch independent of each other.
+
+``synthesize_batch`` routes by device: a CUDA tensor launches the kernel in
+``csrc/synth.cu`` (or raises), a CPU tensor takes ``synthesize_batch_plain``.
+``KERNEL_LAUNCHES`` and ``PLAIN_CALLS`` count each. ``recombine_stereo`` is
+elementwise (the inverse of the encoder's stereo decorrelation) and plain
+torch on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+TAPS = 32
+
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def reset_counts() -> None:
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    KERNEL_LAUNCHES = 0
+    PLAIN_CALLS = 0
+
+
+def synthesize_batch_plain(
+    values: torch.Tensor, qcoeffs: torch.Tensor, shift: torch.Tensor,
+    order: torch.Tensor, wasted: torch.Tensor,
+) -> torch.Tensor:
+    """The scan as a loop over the B sample positions with the [M, 32]
+    history of every subframe as its state, newest sample first."""
+    m, b = values.shape
+    state = torch.zeros((m, TAPS), dtype=torch.int64, device=values.device)
+    outs = torch.empty_like(values)
+    for i in range(b):
+        v = values[:, i]
+        pred = (state * qcoeffs).sum(dim=-1) >> shift
+        out = torch.where(i < order, v, v + pred)
+        state = torch.cat([out[:, None], state[:, :-1]], dim=1)
+        outs[:, i] = out
+    return outs << wasted[:, None]
+
+
+def _check(values, qcoeffs, shift, order, wasted) -> None:
+    if values.dim() != 2:
+        raise ValueError(f"values must be [M, B], got {tuple(values.shape)}")
+    m = values.shape[0]
+    if tuple(qcoeffs.shape) != (m, TAPS):
+        raise ValueError(f"qcoeffs must be [{m}, {TAPS}], got {tuple(qcoeffs.shape)}")
+    for name, t in (("values", values), ("qcoeffs", qcoeffs)):
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name} must be int64, got {t.dtype}")
+    for name, t in (("qcoeffs", qcoeffs), ("shift", shift), ("order", order),
+                    ("wasted", wasted)):
+        if t.device != values.device:
+            raise ValueError(f"{name} is on {t.device}, values on {values.device}")
+    for name, t in (("shift", shift), ("order", order), ("wasted", wasted)):
+        if tuple(t.shape) != (m,):
+            raise ValueError(f"{name} must be [{m}], got {tuple(t.shape)}")
+        if t.dtype.is_floating_point or t.dtype.is_complex or t.dtype == torch.bool:
+            raise TypeError(f"{name} must be an integer tensor, got {t.dtype}")
+    # a shift by the full width is undefined in C++ and in torch alike
+    if m and bool(((shift < 0) | (shift > 63) | (wasted < 0) | (wasted > 63)).any()):
+        raise ValueError("shift and wasted must lie in 0..63")
+
+
+def synthesize_batch(
+    values: torch.Tensor, qcoeffs: torch.Tensor, shift: torch.Tensor,
+    order: torch.Tensor, wasted: torch.Tensor,
+) -> torch.Tensor:
+    """[M, B] normalized subframes -> [M, B] int64 decoded wire samples, on
+    the tensors' device: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. ``shift``, ``order`` and ``wasted`` are [M] integer
+    vectors of any width."""
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    _check(values, qcoeffs, shift, order, wasted)
+    shift, order, wasted = (t.to(torch.int64).contiguous() for t in (shift, order, wasted))
+    if values.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return synthesize_batch_plain(values, qcoeffs, shift, order, wasted)
+    if values.device.type != "cuda":
+        raise NotImplementedError(f"no synthesis kernel for device {values.device}")
+    if not (values.is_contiguous() and qcoeffs.is_contiguous()):
+        raise ValueError("values and qcoeffs must be contiguous")
+    from ._build import library
+
+    lib = library()
+    m, b = values.shape
+    out = torch.empty_like(values)
+    if m == 0 or b == 0:
+        return out
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.zf_synthesize(
+            values.data_ptr(), qcoeffs.data_ptr(), shift.data_ptr(), order.data_ptr(),
+            wasted.data_ptr(), m, b, out.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"synthesis kernel launch failed: {lib.zf_error_string(err).decode()}"
+        )
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def recombine_stereo(wire: torch.Tensor, ch_code: torch.Tensor) -> torch.Tensor:
+    """Invert stereo decorrelation for a [F, 2, B] int64 wire-sample batch;
+    ``ch_code`` is the [F] frame channel code."""
+    a, b = wire[:, 0], wire[:, 1]
+    cc = ch_code.to(torch.int64)[:, None]
+    # 8 left-side: (left, side) -> (left, left - side)
+    # 9 side-right: (side, right) -> (side + right, right)
+    # 10 mid-side: (mid, side); left = mid + ((side + (side & 1)) >> 1)
+    left = torch.where(
+        cc == 8, a,
+        torch.where(cc == 9, a + b, torch.where(cc == 10, a + ((b + (b & 1)) >> 1), a)),
+    )
+    right = torch.where(
+        cc == 8, a - b,
+        torch.where(cc == 9, b, torch.where(cc == 10, left - b, b)),
+    )
+    return torch.stack([left, right], dim=1)
