@@ -18,11 +18,25 @@ Phases:
      events, and config 1's batch, timed again in turns with the plain
      version, gives the kernel's times and bound. The synthesis kernel's
      half of this phase (2-synth) runs after phase 6, once the FLAC streams
-     it parses exist: kernel == plain on random subframes (orders 0-32,
-     blocks of 1 to 65535 samples, sums that wrap) and on the first parsed
-     batch (512 frames) of config 1's FLAC, config 3's (LPC) and the 32-bit
-     LPC stream's (33-bit sides), each timed with CUDA events beside its
-     plain version and its bound.
+     it parses exist. Kernel == plain, with the arithmetic that each block
+     of 32 subframes chose read back (taps summed, int32 or 64-bit
+     multiplies, the tile at which it left int32), on: random subframes
+     (orders 0-32, blocks of 1 to 65535 samples, sums that wrap); the
+     boundaries of the int32 arithmetic (coefficients at and past +-2^31, a
+     sample that leaves int32 in the first tile, inside, at the end and at
+     the start of a tile and in a ragged last tile, and comes back; fixed
+     predictors with every shift 0; 33-bit verbatim samples); every order
+     0-32 against the tap count it must run; order 0 with wasted bits; 16
+     and 8 subframes to a block. Then each compiled tap count at M = 1024,
+     B = 4096, in int32 and (4, 8, 16, 32 taps) 64-bit arithmetic, equal
+     on its first 512 positions and timed, through the wrapper and as
+     launches alone; the launch
+     shape (32, 16, 8 subframes to a block) and 1024 to 16,896 subframes,
+     timed; and the first parsed batch (512 frames) of config 1's FLAC,
+     config 3's (LPC), the 32-bit LPC stream's and a 32-bit stream in
+     antiphase (33-bit side samples), each equal and timed beside its plain
+     version and its bound. Configs 1 and 3 must run in int32 only, the
+     antiphase stream must not.
   3. All 22 pinned corpus streams of tests/vectors/corpus (fixed and LPC,
      depths 8 to 32) encoded on the card, byte for byte.
   4. Config 1 at full size: 285 s of 16-bit/44.1 kHz stereo (bench.py's
@@ -37,7 +51,8 @@ Phases:
   6. Depth 32: bench.py's 32-bit input with fixed and with LPC prediction
      must give the pinned bytes; a batch of 32-bit white noise overflows
      tier 0, re-encodes at the exact tier through the kernel's
-     global-memory branch and must equal the port's bytes on the CPU.
+     global-memory branch and must equal the port's bytes on the CPU. A
+     64-frame 32-bit stream in antiphase is encoded for the decode phases.
   7. Config 2 at full size: bench.py's 24-bit / 96 kHz input (1024 frames,
      43.7 s) through encode_wav_bytes must give the pinned bytes. Prints
      the warm wall time, x-realtime and the stage times.
@@ -55,7 +70,9 @@ Phases:
      2, config 3 and the 32-bit LPC input must give back the samples of the
      WAV each was encoded from, with the MD5 verified. Prints the warm wall
      time, x-realtime, the host parse's seconds, the synthesis kernel's ms
-     per batch and the bytes copied each way; beside it config 1 through
+     per batch, how many of its blocks ran in int32 or 64-bit arithmetic
+     (configs 1-3: int32 only; the 32-bit antiphase stream, decoded here
+     too: not) and the bytes copied each way; beside it config 1 through
      backend="native" (all C++, no device). decode_file of config 1 must
      write the input WAV byte for byte, and decode_range of 10 s from the
      middle of the 40-minute FLAC (by its SEEKTABLE) the WAV's slice.
@@ -139,6 +156,13 @@ LONG_FLAGS = ["--seek-interval", "10", "--tag", "TITLE=forty minutes", "--paddin
 LONG_KW = dict(seek_interval=10 * RATE, tags=[("TITLE", "forty minutes")], padding=4096)
 # decode: frames a batch, as decoder._BATCH_FRAMES
 DECODE_BATCH_FRAMES = 512
+# streams whose every sample fits int32: the synthesis kernel must run all
+# their blocks in its int32 arithmetic
+NARROW_STREAMS = ("config1", "config2", "config3")
+# 32-bit stereo in antiphase (a tone on the left, its negative on the right,
+# the same noise on both), so that the encoder codes a side channel, whose
+# samples need 33 bits
+ANTIPHASE32_FRAMES = 64
 CLI_CHILDREN_AT_ONCE = 6
 
 # H100 SXM data sheet: HBM rate
@@ -158,11 +182,15 @@ BOOST_HZ = 1.98e9
 # multiply-add of the low halves and two multiply-adds into the high half,
 # and a share of the loads, shifts and stores
 SYNTH_INT32_OPS_PER_MAC = 4
-# cycles of the dependent chain from one sample to the next: the newest
-# sample's product (wide multiply, then the high half: 2 x 5), the add into
-# the sum with its carry (2 x 2), the funnel shift (4), the add of the value
-# with its carry (4) and the select (2)
-SYNTH_CHAIN_CYCLES_PER_STEP = 24
+# cycles of the dependent chain from one sample to the next, from the SASS of
+# csrc/synth.cu's int32 tiles (tools/torch_synth_kernel.py prints their
+# instructions), at 5 cycles for each fixed-latency integer instruction.
+# Where every shift is 0 (fixed predictors) only the low word's 32-bit
+# multiply-add (one IMAD) lies between two samples; otherwise IMAD.WIDE with
+# the older taps' sum as its addend, the funnel shift's low word and the
+# 32-bit add.
+SYNTH_CHAIN_CYCLES_SHIFT0 = 5
+SYNTH_CHAIN_CYCLES_PER_STEP = 15
 
 
 def deposit_bound(n_frames: int, n_sym: int, max_words: int):
@@ -178,21 +206,23 @@ def deposit_bound(n_frames: int, n_sym: int, max_words: int):
     return nbytes, max(t_bytes, t_ops) * 1e3, bound_by, t_ops * 1e3
 
 
-def synth_bound(m: int, b: int, order_sum: int, max_order: int):
+def synth_bound(m: int, b: int, order_sum: int, max_order: int, shift0: bool):
     """(bytes, ms, bound_by, parts): the least time the card could take for
     one synthesis of m subframes of b positions, the largest of three: the
     bytes (values read once, samples written once, 32 coefficients and
     three int64 scalars per subframe) over the HBM rate; the multiply-adds
     that these subframes' orders need (order x b each), at
     SYNTH_INT32_OPS_PER_MAC INT32 operations, over the INT32 rate; and the
-    dependent chain, b steps of SYNTH_CHAIN_CYCLES_PER_STEP cycles at the
+    dependent chain, b steps of SYNTH_CHAIN_CYCLES_PER_STEP cycles
+    (SYNTH_CHAIN_CYCLES_SHIFT0 if ``shift0``: every shift is 0) at the
     boost clock wherever any subframe predicts at all. The chain is a bound
     on operations: it is reported as such, with ``parts`` naming it."""
     nbytes = 16 * m * b + (8 * 32 + 24) * m
+    chain = SYNTH_CHAIN_CYCLES_SHIFT0 if shift0 else SYNTH_CHAIN_CYCLES_PER_STEP
     parts = {
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "ops_ms": SYNTH_INT32_OPS_PER_MAC * order_sum * b / INT32_OPS_PER_S * 1e3,
-        "chain_ms": (b * SYNTH_CHAIN_CYCLES_PER_STEP / BOOST_HZ * 1e3) if max_order else 0.0,
+        "chain_ms": (b * chain / BOOST_HZ * 1e3) if max_order else 0.0,
     }
     largest = max(parts, key=parts.get)
     parts["largest"] = largest
@@ -460,29 +490,140 @@ def _subframes(rng, m, b, max_order=32, wrap=False):
     return values, q, rng.integers(0, 16, m), order, rng.integers(0, 4, m)
 
 
+def _quiet_subframes(rng, m, b, order, shift=12, wasted=0):
+    """m stable subframes of one order: 16-bit values and coefficients whose
+    magnitudes sum to under 2^shift, the last one non-zero, so every sample
+    stays far inside int32 and the kernel sums exactly ``order`` taps."""
+    q = np.zeros((m, 32), np.int64)
+    if order:
+        q[:, :order] = rng.integers(-100, 101, (m, order))
+        q[:, order - 1] = rng.choice([-7, 9], m)
+    values = rng.integers(-(1 << 15), 1 << 15, (m, b))
+    return [values, q, np.full(m, shift), np.full(m, min(order, b)), np.full(m, wasted)]
+
+
+def _fixed_subframes(rng, m, b, max_order):
+    """Fixed predictors as a stream's batch has them: orders 0-max_order
+    mixed (row 0 has the largest), binomial coefficients, shift 0, and as
+    values the order-th differences of a 15-bit signal."""
+    binomial = [[], [1], [2, -1], [3, -3, 1], [4, -6, 4, -1]]
+    order = rng.integers(0, max_order + 1, m)
+    order[0] = max_order
+    q = np.zeros((m, 32), np.int64)
+    values = rng.integers(-(1 << 14), 1 << 14, (m, b))
+    for i in range(m):
+        q[i, :order[i]] = binomial[order[i]]
+        values[i, order[i]:] = np.diff(values[i], n=order[i])
+    return [values, q, np.zeros(m, np.int64), order, np.zeros(m, np.int64)]
+
+
+# positions at which a boundary case's running sum leaves int32, by block
+# length: the first sample, the first tile, the middle, the last and the
+# first position of a 32-position tile, and a ragged last tile
+SYNTH_LEAVE_AT = [(100, 0), (100, 5), (200, 113), (200, 127), (200, 128), (110, 105)]
+# tap counts the kernel compiles
+SYNTH_TAP_COUNTS = (0, 1, 2, 3, 4, 8, 16, 24, 32)
+
+
 def phase2_synth(env, streams) -> dict:
-    """The synthesis kernel against its plain version on the card: random
-    subframes, then the first parsed batch of each FLAC in ``streams``
-    (name -> (FLAC bytes, bit depth)). Returns the kernel's entry for the
-    last lines: config 1's batch, timed in turns with the plain version."""
+    """The synthesis kernel against its plain version on the card, with the
+    arithmetic each block chose read back: random subframes; the boundaries
+    of the int32 arithmetic; every compiled tap count in int32 and in 64-bit
+    arithmetic, all on short blocks; then the first parsed batch of each
+    FLAC in ``streams`` (name -> (FLAC bytes, bit depth)), timed. Returns
+    the kernel's entry for the last lines: config 1's batch, timed in turns
+    with the plain version. tools/torch_synth_kernel.py times each variant
+    alone."""
     torch, dev, synth = env.torch, env.dev, env.synth
     rng = np.random.default_rng(0x5CA7)
     max_err = 0
 
+    def on_card(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
     def compare(args):
+        """Kernel == plain; returns the variant report of the launch as
+        [taps, ended wide, tile at which it went wide or -1] per block of 32
+        subframes."""
         nonlocal max_err
-        got = synth.synthesize_batch(*args)
+        synth.STATS = {}
+        try:
+            got = synth.synthesize_batch(*args)
+        finally:
+            stats, synth.STATS = synth.STATS, None
         want = synth.synthesize_batch_plain(*args)
         torch.cuda.synchronize()
         err = int((got - want).abs().max()) if got.numel() else 0
         max_err = max(max_err, err)
         if err:
             raise AssertionError(f"synthesis kernel != plain (max |diff| {err})")
+        return stats["variants"]
+
+    def expect(what, variants, want):
+        got = variants[0].cpu().tolist()
+        if got != want:
+            raise AssertionError(f"synthesis variants, {what}: {got}, expected {want}")
 
     cases = [dict(m=100, b=4096), dict(m=3001, b=257), dict(m=37, b=1), dict(m=1, b=33),
-             dict(m=5, b=65535), dict(m=64, b=1000, wrap=True)]
+             dict(m=5, b=65535), dict(m=64, b=1000, wrap=True), dict(m=40, b=31),
+             dict(m=40, b=32)]
+    counts = {}
     for kw in cases:
-        compare([torch.from_numpy(a).to(dev) for a in _subframes(rng, **kw)])
+        v = compare(on_card(_subframes(rng, **kw)))
+        counts["m{m}_b{b}".format(**kw) + ("_wrap" if kw.get("wrap") else "")] = (
+            synth.variant_counts(v))
+    if counts["m64_b1000_wrap"]["wide_from_start"] != 2 or counts["m100_b4096"]["narrow"] == 4:
+        raise AssertionError(f"random subframes took unexpected variants: {counts}")
+
+    # the boundaries of the narrow arithmetic, two blocks each: [taps, wide, tile]
+    narrow, wide = 0, 1
+    for coeff, start in (((1 << 31) - 1, narrow), (-(1 << 31), narrow), (1 << 31, wide),
+                         (-(1 << 31) - 1, wide), (-(1 << 62), wide)):
+        a = _quiet_subframes(rng, 64, 80, 2, shift=31)
+        a[1][36, 0], a[1][36, 1] = coeff, 1
+        a[0][36] = rng.integers(-3, 4, 80)
+        expect(f"coefficient {coeff}", compare(on_card(a)),
+               [[2, narrow, -1], [2, start, 0 if start else -1]])
+    for b, at in SYNTH_LEAVE_AT:
+        for back in (False, True):
+            a = _quiet_subframes(rng, 64, b, 2)
+            # row 7: a running sum that steps to 2^31 at ``at`` (and back)
+            a[0][7] = 0
+            a[0][7, at] = 1 << 31
+            if back and at + 3 < b:
+                a[0][7, at + 3] = -(1 << 31) - 5
+            a[1][7] = 0
+            a[1][7, 0], a[2][7], a[3][7] = 1, 0, min(1, at)
+            expect(f"leaves int32 at {at} of {b}", compare(on_card(a)),
+                   [[2, wide, at // 32], [2, narrow, -1]])
+    for max_order in (1, 2, 3, 4):  # shifts all 0: the low word's own 32-bit multiply-add
+        for at in (None, 3, 40, 95, 130):
+            a = _fixed_subframes(rng, 40, 140, max_order)
+            if at is not None:
+                a[0][5, at] += 1 << 32
+            expect(f"fixed predictors to order {max_order}, leaving int32 at {at}",
+                   compare(on_card(a)),
+                   [[max_order, narrow, -1] if at is None else [max_order, wide, at // 32],
+                    [int(a[3][32:].max()), narrow, -1]])
+    for value in ((1 << 31) - 1, -(1 << 31), 1 << 31, -(1 << 32)):  # 33-bit side samples
+        a = _quiet_subframes(rng, 5, 70, 4)
+        a[0][2, 40], a[1][2], a[3][2] = value, 0, 0
+        fits = -(1 << 31) <= value < (1 << 31)
+        expect(f"verbatim {value}", compare(on_card(a)),
+               [[4, narrow, -1] if fits else [4, wide, 1]])
+    for order in range(33):  # just below, at and above every compiled tap count
+        taps = min(t for t in SYNTH_TAP_COUNTS if t >= order)
+        expect(f"order {order}",
+               compare(on_card(_quiet_subframes(rng, 33, 100, order))),
+               [[taps, narrow, -1]] * 2)
+    a = _quiet_subframes(rng, 6, 65, 0, wasted=7)  # constant and verbatim: a copy, shifted
+    a[0][0] = 1234
+    expect("order 0 with wasted bits", compare(on_card(a)), [[0, narrow, -1]])
+    for taps in SYNTH_TAP_COUNTS:  # 64-bit from the first tile: a sample past int32 at its head
+        a = _quiet_subframes(rng, 40, 100, taps)
+        a[0][3, 0] = 1 << 40
+        expect(f"{taps} taps in 64 bits", compare(on_card(a)),
+               [[taps, wide, 0], [taps, narrow, -1]])
 
     parser = env.build.native_module()
     out = {}
@@ -494,9 +635,10 @@ def phase2_synth(env, streams) -> dict:
         args = [torch.from_numpy(np.frombuffer(vb, np.int64).reshape(m, b).copy()).to(dev),
                 torch.from_numpy(np.frombuffer(qb, np.int64).reshape(m, 32).copy()).to(dev),
                 *(torch.from_numpy(sow[:, i].copy()).to(dev) for i in range(3))]
-        compare(args)
+        variants = synth.variant_counts(compare(args))
         order = sow[:, 1]
-        nbytes, bound_ms, bound_by, parts = synth_bound(m, b, int(order.sum()), int(order.max()))
+        nbytes, bound_ms, bound_by, parts = synth_bound(
+            m, b, int(order.sum()), int(order.max()), shift0=not sow[:, 0].any())
         run_kernel = lambda: synth.synthesize_batch(*args)
         run_plain = lambda: synth.synthesize_batch_plain(*args)
         # compare() has warmed both up; the plain loop is slow, so one run
@@ -508,12 +650,19 @@ def phase2_synth(env, streams) -> dict:
         out[name] = dict(
             subframes=m, block=b, orders=np.bincount(order, minlength=1).tolist(),
             max_abs_value_bits=int(np.abs(np.frombuffer(vb, np.int64)).max()).bit_length(),
-            kernel_ms=kernel, plain_ms=plain, bound_bytes=nbytes,
+            variants=variants, kernel_ms=kernel, plain_ms=plain,
+            bound_bytes=nbytes,
             bound_ms=bound_ms, bound_by=bound_by, bound_parts=parts)
         del args
     if sum(out["config3"]["orders"][5:]) == 0:  # fixed predictors stop at order 4
         raise AssertionError("config 3's batch has no LPC subframe")
-    _log("2-synth", random_cases=cases, streams=out, max_abs_err=max_err)
+    for name in ("config1", "config3"):
+        if out[name]["variants"]["narrow"] != out[name]["variants"]["blocks"]:
+            raise AssertionError(f"{name}: a block left the int32 arithmetic: {out[name]}")
+    if out["antiphase32"]["variants"]["narrow"] == out["antiphase32"]["variants"]["blocks"]:
+        raise AssertionError("the 33-bit side channel never left the int32 arithmetic")
+    _log("2-synth", random_cases=cases, random_variants=counts, boundary_cases_equal=True,
+         streams=out, max_abs_err=max_err)
     c1 = out["config1"]
     return {
         "name": "synthesize_batch",
@@ -548,10 +697,15 @@ def phase10_decode(env, tmp, cases, long_file) -> int:
         launches += k
         if not got.md5_ok or not np.array_equal(got.samples, want):
             raise AssertionError(f"decode {name}: samples or MD5 differ from the WAV's")
-        decoder.STATS = {}
+        decoder.STATS, env.synth.STATS = {}, {}
         zt.decode_flac(flac, device=dev)
         torch.cuda.synchronize()
         stats, decoder.STATS = decoder.STATS, None
+        variants, env.synth.STATS = env.synth.variant_counts(env.synth.STATS["variants"]), None
+        if name in NARROW_STREAMS and variants["narrow"] != variants["blocks"]:
+            raise AssertionError(f"decode {name}: a block left the int32 arithmetic: {variants}")
+        if name == "antiphase32" and variants["narrow"] == variants["blocks"]:
+            raise AssertionError(f"decode {name}: no block left the int32 arithmetic")
         kernel_ms = [a.elapsed_time(b) for a, b in stats.pop("synth_events")]
         t0 = time.perf_counter()  # the MD5 and its byte serialization, part of every decode
         decoder._verify_md5(got.samples, got.info)
@@ -559,7 +713,8 @@ def phase10_decode(env, tmp, cases, long_file) -> int:
         audio_s = got.info.interchannel_samples / got.info.sample_rate
         _log("10", stream=name, flac_bytes=len(flac), frames=got.frame_count, audio_s=audio_s,
              wall_s=wall, x_realtime=audio_s / wall, kernel_launches=k, plain_calls=0,
-             md5_ok=True, equals_wav=True, kernel_ms_per_batch=kernel_ms, **stats)
+             md5_ok=True, equals_wav=True, kernel_ms_per_batch=kernel_ms,
+             kernel_blocks=variants, **stats)
         del got, want
 
     flac1, wav1 = cases["config1"]
@@ -842,6 +997,12 @@ def main() -> int:
     buf = io.BytesIO()
     write_wav(buf, noise, RATE, 32)
     wav_noise = buf.getvalue()
+    t = np.arange(ANTIPHASE32_FRAMES * BLOCK)
+    left = np.round(1.9e9 * np.sin(2 * np.pi * 440 * t / RATE)).astype(np.int64)
+    hiss = np.random.default_rng(0x33).integers(-(1 << 20), 1 << 20, len(t))
+    buf = io.BytesIO()
+    write_wav(buf, np.stack([left + hiss, -left + hiss]), RATE, 32)
+    wav_anti = buf.getvalue()
     cfg1 = zt.EncoderConfig.default(2)
     cfg_lpc = replace(cfg1, prediction="lpc")
     inputs_s = time.perf_counter() - t0
@@ -1138,6 +1299,9 @@ def main() -> int:
         raise AssertionError("32-bit noise never reached the exact tier's wide rows")
     _log("6-noise", frames=NOISE32_FRAMES, flac_bytes=len(flac), equals_cpu=True,
          kernel_launches=k, global_row_launches=g)
+    flac_anti, k, _ = counted("32-bit antiphase", lambda: zt.encode_wav_bytes(
+        wav_anti, config=cfg_lpc, device=dev))
+    _log("6-antiphase", frames=ANTIPHASE32_FRAMES, flac_bytes=len(flac_anti), kernel_launches=k)
 
     # -- phase 2, the synthesis kernel's half, and phases 7-11 ----------------
     import tempfile
@@ -1149,7 +1313,8 @@ def main() -> int:
                           pipeline_cls=pl.DevicePipeline, decoder=decoder, synth=synth,
                           build=_build)
     synth_entry = phase2_synth(env, {"config1": (flac1, 16), "config3": (flac3, 16),
-                                     "depth32_lpc": (flac32, 32)})
+                                     "depth32_lpc": (flac32, 32),
+                                     "antiphase32": (flac_anti, 32)})
     wav2, flac2 = phase7_config2(env, write_wav)
     with tempfile.TemporaryDirectory(prefix="zf_smoke_") as tmp:
         album = phase8_album(env, tmp, wav1, wav2, {"config1.wav": CONFIG1_FLAC_SHA,
@@ -1157,7 +1322,8 @@ def main() -> int:
         long_file = phase9_stream(env, tmp)
         synth_entry["launches"] = phase10_decode(
             env, tmp, {"config1": (flac1, wav1), "config2": (flac2, wav2),
-                       "config3": (flac3, wav3), "depth32_lpc": (flac32, wav32)}, long_file)
+                       "config3": (flac3, wav3), "depth32_lpc": (flac32, wav32),
+                       "antiphase32": (flac_anti, wav_anti)}, long_file)
         phase11_cli(env, tmp, album, long_file, wav3, CONFIG1_FLAC_SHA)
     _log("end", wall_s=time.perf_counter() - t_start)
 

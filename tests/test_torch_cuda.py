@@ -225,6 +225,9 @@ def _subframes(rng, m, b, max_order=32, bits=33, wrap=False):
         (37, 1, dict()),                   # a one-sample tail
         (5, 65535, dict()),                # the format's largest block
         (64, 1000, dict(wrap=True)),       # sums past 2^63 wrap as int64
+        (40, 31, dict()),                  # one ragged tile
+        (40, 32, dict()),                  # one whole tile
+        (40, 33, dict()),                  # a tile and one position
     ],
 )
 def test_synth_kernel_matches_plain(rng, m, b, kw):
@@ -233,6 +236,140 @@ def test_synth_kernel_matches_plain(rng, m, b, kw):
     got = synth.synthesize_batch(*args)
     assert (synth.KERNEL_LAUNCHES, synth.PLAIN_CALLS) == (1, 0)
     torch.testing.assert_close(got, synth.synthesize_batch_plain(*args), rtol=0, atol=0)
+
+
+def _quiet(rng, m, b, order, shift=12, wasted=0):
+    """m stable subframes of one order: 16-bit values, coefficients whose
+    magnitudes sum to under 2^shift with the last one non-zero, so every
+    sample stays far inside int32."""
+    q = np.zeros((m, 32), np.int64)
+    if order:
+        q[:, :order] = rng.integers(-100, 101, (m, order))
+        q[:, order - 1] = rng.choice([-7, 9], m)
+    values = rng.integers(-(1 << 15), 1 << 15, (m, b))
+    return [values, q, np.full(m, shift), np.full(m, min(order, b)), np.full(m, wasted)]
+
+
+def _fixed(rng, m, b, max_order=4):
+    """Fixed predictors as a stream's batch has them: orders 0-max_order
+    mixed (row 0 has the largest), binomial coefficients, shift 0, and as
+    values the order-th differences of a 15-bit signal."""
+    binomial = [[], [1], [2, -1], [3, -3, 1], [4, -6, 4, -1]]
+    order = rng.integers(0, max_order + 1, m)
+    order[0] = max_order
+    q = np.zeros((m, 32), np.int64)
+    values = rng.integers(-(1 << 14), 1 << 14, (m, b))
+    for i in range(m):
+        o = min(int(order[i]), b)
+        q[i, :o] = binomial[o]
+        values[i, o:] = np.diff(values[i], n=o)
+    return [values, q, np.zeros(m, np.int64), np.minimum(order, b), np.zeros(m, np.int64)]
+
+
+NARROW, WIDE = 0, 1
+
+
+def _kernel_with_report(monkeypatch, arrays):
+    """Kernel == plain on the card; returns the launch's variant report,
+    [taps, ended wide, tile at which it went wide or -1] per block of 32
+    subframes."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+    monkeypatch.setattr(synth, "STATS", {})
+    synth.reset_counts()
+    got = synth.synthesize_batch(*args)
+    assert (synth.KERNEL_LAUNCHES, synth.PLAIN_CALLS) == (1, 0)
+    torch.testing.assert_close(got, synth.synthesize_batch_plain(*args), rtol=0, atol=0)
+    (report,) = synth.STATS["variants"]
+    return report.cpu().tolist()
+
+
+@pytest.mark.parametrize("order", [0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 23, 24, 25, 31, 32])
+def test_synth_kernel_every_tap_count(rng, monkeypatch, order):
+    """Orders just below, at and above each compiled tap count run the
+    smallest count that covers them, in the int32 arithmetic."""
+    report = _kernel_with_report(monkeypatch, _quiet(rng, 33, 100, order))
+    want = order if order <= 4 else 8 if order <= 8 else 16 if order <= 16 else \
+        24 if order <= 24 else 32
+    assert report == [[want, NARROW, -1]] * 2
+
+
+@pytest.mark.parametrize("coeff,start", [
+    ((1 << 31) - 1, NARROW), (-(1 << 31), NARROW), (1 << 31, WIDE), (-(1 << 31) - 1, WIDE),
+    (-(1 << 62), WIDE)])
+def test_synth_kernel_coefficient_width(rng, monkeypatch, coeff, start):
+    """A block starts in int32 arithmetic exactly if all its coefficients fit."""
+    values, q, shift, order, wasted = _quiet(rng, 64, 80, 2, shift=31)
+    q[36, 0], q[36, 1] = coeff, 1
+    values[36] = rng.integers(-3, 4, 80)
+    report = _kernel_with_report(monkeypatch, (values, q, shift, order, wasted))
+    assert report == [[2, NARROW, -1], [2, start, 0 if start == WIDE else -1]]
+
+
+@pytest.mark.parametrize("b,at", [(100, 0), (100, 5), (200, 32 * 3 + 17), (200, 32 * 3 + 31),
+                                  (200, 32 * 4), (110, 32 * 3 + 9), (4096, 4000)],
+                         ids=["first_sample", "first_tile", "mid_tile", "tile_end",
+                              "tile_start", "ragged_tile", "late"])
+@pytest.mark.parametrize("back", [False, True], ids=["stays_out", "comes_back"])
+def test_synth_kernel_sample_leaves_int32(rng, monkeypatch, b, at, back):
+    """A running sum that steps to 2^31 at ``at`` (and back below it three
+    positions on) takes its block wide in that tile, and no other block."""
+    values, q, shift, order, wasted = _quiet(rng, 64, b, 2)
+    values[7] = 0
+    values[7, at] = 1 << 31
+    if back and at + 3 < b:
+        values[7, at + 3] = -(1 << 31) - 5
+    q[7] = 0
+    q[7, 0], shift[7], order[7] = 1, 0, min(1, at)
+    report = _kernel_with_report(monkeypatch, (values, q, shift, order, wasted))
+    assert report == [[2, WIDE, at // 32], [2, NARROW, -1]]
+
+
+@pytest.mark.parametrize("max_order", [1, 2, 3, 4])
+@pytest.mark.parametrize("at", [None, 3, 40, 95, 130], ids=lambda at: f"leaves_at_{at}")
+def test_synth_kernel_fixed_predictors(rng, monkeypatch, max_order, at):
+    """Blocks whose shifts are all 0 (the 32-bit multiply-add for the low
+    word), quiet and with a row whose value at ``at`` is 2^32 too large."""
+    values, q, shift, order, wasted = _fixed(rng, 40, 140, max_order)
+    if at is not None:
+        values[5, at] += 1 << 32
+    report = _kernel_with_report(monkeypatch, (values, q, shift, order, wasted))
+    want = [max_order, NARROW, -1] if at is None else [max_order, WIDE, at // 32]
+    assert report == [want, [int(order[32:].max()), NARROW, -1]]
+
+
+@pytest.mark.parametrize("value", [(1 << 31) - 1, -(1 << 31), 1 << 31, -(1 << 32)])
+def test_synth_kernel_int32_edge_values(rng, monkeypatch, value):
+    values, q, shift, order, wasted = _quiet(rng, 5, 70, 4)
+    values[2, 40] = value
+    q[2], order[2] = 0, 0  # verbatim: the sample is the value
+    report = _kernel_with_report(monkeypatch, (values, q, shift, order, wasted))
+    fits = -(1 << 31) <= value < (1 << 31)
+    assert report == [[4, NARROW, -1] if fits else [4, WIDE, 1]]
+
+
+def test_synth_kernel_copies_order_0_with_wasted_bits(rng, monkeypatch):
+    args = _quiet(rng, 6, 65, 0, wasted=7)
+    args[0][0] = 1234  # a constant subframe
+    assert _kernel_with_report(monkeypatch, args) == [[0, NARROW, -1]]
+
+
+@pytest.mark.parametrize("row", [17, 37])
+def test_synth_kernel_ragged_last_block(rng, monkeypatch, row):
+    """40 subframes are a block of 32 and one of 8: a row that leaves int32
+    takes only its own block wide."""
+    values, q, shift, order, wasted = _quiet(rng, 40, 100, 8)
+    values[row, 50] = 1 << 33
+    report = _kernel_with_report(monkeypatch, (values, q, shift, order, wasted))
+    want = [[8, NARROW, -1], [8, NARROW, -1]]
+    want[row // 32] = [8, WIDE, 1]
+    assert report == want
+
+
+def test_synth_kernel_records_nothing_by_default(rng):
+    assert synth.STATS is None
+    args = [torch.from_numpy(a).cuda() for a in _subframes(rng, 4, 64)]
+    synth.synthesize_batch(*args)
+    assert synth.STATS is None
 
 
 def test_synth_kernel_refuses_what_it_does_not_take(rng):

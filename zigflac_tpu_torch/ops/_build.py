@@ -91,7 +91,7 @@ def library() -> ctypes.CDLL:
     lib.zf_shared_row_bytes.argtypes = []
     lib.zf_shared_row_bytes.restype = ctypes.c_int64
     lib.zf_synthesize.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.zf_synthesize.restype = ctypes.c_int
     lib.zf_error_string.argtypes = [ctypes.c_int]

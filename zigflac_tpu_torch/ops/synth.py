@@ -14,19 +14,50 @@ with all M subframes of a batch independent of each other.
 
 ``synthesize_batch`` routes by device: a CUDA tensor launches the kernel in
 ``csrc/synth.cu`` (or raises), a CPU tensor takes ``synthesize_batch_plain``.
-``KERNEL_LAUNCHES`` and ``PLAIN_CALLS`` count each. ``recombine_stereo`` is
-elementwise (the inverse of the encoder's stereo decorrelation) and plain
-torch on either device.
+``KERNEL_LAUNCHES`` and ``PLAIN_CALLS`` count each. The kernel chooses its
+arithmetic per block of ``BLOCK_ROWS`` subframes (how many taps it sums,
+int32 or 64-bit multiplies); while ``STATS`` is a dict every launch records
+what each block chose, and ``variant_counts`` sums that up.
+``recombine_stereo`` is elementwise (the inverse of the encoder's stereo
+decorrelation) and plain torch on either device.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 TAPS = 32
+# Subframes to a block of the kernel (kRows in csrc/synth.cu): one to a lane
+# of its computing warp.
+BLOCK_ROWS = 32
 
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
+
+# While this is a dict, every kernel launch appends to STATS["variants"] an
+# int32 [blocks, 3] tensor on the launch's device, one row per block of
+# BLOCK_ROWS subframes: the taps it summed (0-4, 8, 16, 24 or 32), 1 if
+# it ended in 64-bit arithmetic, and the 32-position tile at which it left
+# the int32 arithmetic (0: it never ran narrow; -1: it never left). None,
+# the default, records nothing.
+STATS: Optional[dict] = None
+
+
+def variant_counts(variants) -> dict:
+    """Sums up STATS["variants"]: blocks that stayed narrow, that were wide
+    from their first tile and that went wide midway, and blocks per tap
+    count. Copies the tensors to the host, so it waits for their launches."""
+    rows = torch.cat([v.cpu() for v in variants] + [torch.zeros((0, 3), dtype=torch.int32)])
+    taps, wide, at = rows[:, 0], rows[:, 1] != 0, rows[:, 2]
+    return {
+        "blocks": int(rows.shape[0]),
+        "narrow": int((~wide).sum()),
+        "wide_from_start": int((wide & (at == 0)).sum()),
+        "went_wide": int((wide & (at > 0)).sum()),
+        "taps": {int(t): int((taps == t).sum()) for t in taps.unique()},
+    }
 
 
 def reset_counts() -> None:
@@ -101,17 +132,24 @@ def synthesize_batch(
     out = torch.empty_like(values)
     if m == 0 or b == 0:
         return out
+    report = None
+    if STATS is not None:
+        report = torch.empty((-(-m // BLOCK_ROWS), 3), dtype=torch.int32,
+                             device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.zf_synthesize(
             values.data_ptr(), qcoeffs.data_ptr(), shift.data_ptr(), order.data_ptr(),
-            wasted.data_ptr(), m, b, out.data_ptr(), stream,
+            wasted.data_ptr(), m, b, out.data_ptr(),
+            None if report is None else report.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(
             f"synthesis kernel launch failed: {lib.zf_error_string(err).decode()}"
         )
     KERNEL_LAUNCHES += 1
+    if report is not None:
+        STATS.setdefault("variants", []).append(report)
     return out
 
 
