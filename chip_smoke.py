@@ -7,7 +7,9 @@ Phases:
   0. torch/CUDA versions and the card's name and power limit; a missing
      card is an error.
   1. Build the CUDA kernels from the package's sources (nvcc, sm_90a) and,
-     beside them, the C++ frame parser (g++), both at once.
+     beside them, the C++ frame parser (g++), both at once. Prints whether
+     the host runtime (``native.py``) runs in C++ (``HAVE_NATIVE``) and
+     which build it took: the in-place ``_zf_native`` or the port's own.
   2. The deposit kernel against its plain torch version on the card: random
      symbol streams (33- and 64-bit values, masked and odd columns, the
      word-budget clamp, a row too large for shared memory) and the real
@@ -35,8 +37,10 @@ Phases:
      timed; and the first parsed batch (512 frames) of config 1's FLAC,
      config 3's (LPC), the 32-bit LPC stream's and a 32-bit stream in
      antiphase (33-bit side samples), each equal and timed beside its plain
-     version and its bound. Configs 1 and 3 must run in int32 only, the
-     antiphase stream must not.
+     version and its bound: through ``synthesize_batch`` (whose range check
+     waits for the card) and through the decoder's call, which checks on
+     the host and does not wait. Configs 1 and 3 must run in int32 only,
+     the antiphase stream must not.
   3. All 22 pinned corpus streams of tests/vectors/corpus (fixed and LPC,
      depths 8 to 32) encoded on the card, byte for byte.
   4. Config 1 at full size: 285 s of 16-bit/44.1 kHz stereo (bench.py's
@@ -83,13 +87,30 @@ Phases:
      with LPC (equal to the CPU port's CLI), config 1 with ``--verify``
      (prints ``verify: ok``), ``-d`` on config 1's FLAC (the input WAV byte
      for byte), ``-t`` on it (exit 0), on a copy with a frame byte flipped
-     (exit 2) and on one with an MD5 byte flipped (exit 3), and ``-l``
-     (exit 0). Each subprocess's wall time and peak RSS are printed; the
-     40-minute run's peak RSS must exceed the config-1 run's by less than a
-     quarter of the difference of their WAV sizes.
+     (exit 2) and on one with an MD5 byte flipped (exit 3), ``-l`` (exit
+     0), and ``-e`` with ``--remove-tag`` and ``--import-tags-from`` on a
+     copy of config 1's FLAC (equal to the in-process edit_metadata_bytes;
+     ``-t`` on the edited file must pass). Each subprocess's wall time and
+     peak RSS are printed; the 40-minute run's peak RSS must exceed the
+     config-1 run's by less than a quarter of the difference of their WAV
+     sizes.
+ 12. Multi-GPU on the one card. (a) One process, a mesh of cuda:0 twice:
+     config 1 through an Encoder whose pipeline shards over it (the pinned
+     bytes; the deposit kernel launched once a shard a batch), a ragged
+     batch of 2 x 2 + 3 frames, the first shard's four of them noise (only
+     that shard re-encodes, with its own rows, beside the shard that holds
+     padding; bytes equal the unsharded pipeline's), and phase 6's 32-bit
+     LPC input (both shards overflow tier 0; the pinned bytes), each wall
+     beside the single device's. (b) Two processes sharing the card in a gloo group, each
+     encoding config 1 with encode_wav_bytes over the default mesh (two
+     ranks, one shard each): both must give the pinned bytes. (c) A
+     one-process NCCL group: allgather_parts and the overflow any-reduce
+     on CUDA tensors, through encode_compact_sharded on config 1's first
+     batch (equal to the unsharded pipeline's) and on a batch of noise
+     (the flag set).
 
-Every encode or decode path under test in this process (phases 3-10; not
-the runs it is compared with, nor the CLI subprocesses) runs with the
+Every encode or decode path under test in this process (phases 3-10 and
+12; not the runs it is compared with, nor the CLI subprocesses) runs with the
 kernels' counts set to 0 just before it and read just after: it must have
 launched its kernel (the deposit for an encode, the synthesis for a decode)
 and never called a plain version. Any failure raises, so the exit code is
@@ -164,6 +185,10 @@ NARROW_STREAMS = ("config1", "config2", "config3")
 # samples need 33 bits
 ANTIPHASE32_FRAMES = 64
 CLI_CHILDREN_AT_ONCE = 6
+# the tags file of phase 11's -e child
+EDIT_TAGS = "ALBUM=smoke test\nTITLE=edited\n"
+# phase 12: shards a mesh on the one card has
+SHARDS_ON_ONE_CARD = 2
 
 # H100 SXM data sheet: HBM rate
 HBM_BYTES_PER_S = 3.35e12
@@ -531,9 +556,9 @@ def phase2_synth(env, streams) -> dict:
     of the int32 arithmetic; every compiled tap count in int32 and in 64-bit
     arithmetic, all on short blocks; then the first parsed batch of each
     FLAC in ``streams`` (name -> (FLAC bytes, bit depth)), timed. Returns
-    the kernel's entry for the last lines: config 1's batch, timed in turns
-    with the plain version. tools/torch_synth_kernel.py times each variant
-    alone."""
+    the kernel's entry for the last lines: config 1's batch through the
+    decoder's call, timed in turns with the checked wrapper and beside the
+    plain version. tools/torch_synth_kernel.py times each variant alone."""
     torch, dev, synth = env.torch, env.dev, env.synth
     rng = np.random.default_rng(0x5CA7)
     max_err = 0
@@ -640,17 +665,21 @@ def phase2_synth(env, streams) -> dict:
         nbytes, bound_ms, bound_by, parts = synth_bound(
             m, b, int(order.sum()), int(order.max()), shift0=not sow[:, 0].any())
         run_kernel = lambda: synth.synthesize_batch(*args)
+        run_decoders = lambda: synth._synthesize_unchecked(*args)
         run_plain = lambda: synth.synthesize_batch_plain(*args)
         # compare() has warmed both up; the plain loop is slow, so one run
-        # of it on either side of the kernel's for config 1, one elsewhere
+        # of it on either side of the kernel's for config 1, one elsewhere.
+        # The decoder's call and the checked wrapper, in turns
         plain = [cuda_ms(torch, run_plain, reps=1, warm=False)]
-        kernel = [cuda_ms(torch, run_kernel), cuda_ms(torch, run_kernel)]
+        kernel, unchecked = [cuda_ms(torch, run_kernel)], [cuda_ms(torch, run_decoders)]
+        unchecked.append(cuda_ms(torch, run_decoders))
+        kernel.append(cuda_ms(torch, run_kernel))
         if name == "config1":
             plain.append(cuda_ms(torch, run_plain, reps=1, warm=False))
         out[name] = dict(
             subframes=m, block=b, orders=np.bincount(order, minlength=1).tolist(),
             max_abs_value_bits=int(np.abs(np.frombuffer(vb, np.int64)).max()).bit_length(),
-            variants=variants, kernel_ms=kernel, plain_ms=plain,
+            variants=variants, kernel_ms=kernel, unchecked_ms=unchecked, plain_ms=plain,
             bound_bytes=nbytes,
             bound_ms=bound_ms, bound_by=bound_by, bound_parts=parts)
         del args
@@ -670,7 +699,8 @@ def phase2_synth(env, streams) -> dict:
         "source": "zigflac_tpu_torch/csrc/synth.cu",
         "replaces": "zigflac_tpu/ops/synth.py:29",
         "max_abs_err": max_err,
-        "ms": sum(c1["kernel_ms"]) / len(c1["kernel_ms"]),
+        "ms": sum(c1["unchecked_ms"]) / len(c1["unchecked_ms"]),
+        "checked_ms": sum(c1["kernel_ms"]) / len(c1["kernel_ms"]),
         "plain_ms": sum(c1["plain_ms"]) / len(c1["plain_ms"]),
         "bound_ms": c1["bound_ms"],
         "bound_by": c1["bound_by"],
@@ -800,7 +830,14 @@ def phase11_cli(env, tmp, album, long_file, wav3, want1):
         "h_test_bad_frame": (["-t", p("config1.badframe.flac"), *device], 2),
         "i_test_bad_md5": (["-t", p("config1.badmd5.flac"), *device], 3),
         "j_list": (["-l", flac1_path], 0),
+        # the metadata editor: needs no card
+        "k_edit": ([p("config1.edit.flac"), "-e", "--remove-tag", "TITLE",
+                    "--import-tags-from", p("tags.txt")], 0),
     }
+    with open(p("config1.edit.flac"), "wb") as f:
+        f.write(flac1)
+    with open(p("tags.txt"), "w") as f:
+        f.write(EDIT_TAGS)
     from zigflac_tpu_torch.cli import main as cli_main
 
     t0 = time.perf_counter()
@@ -835,15 +872,212 @@ def phase11_cli(env, tmp, album, long_file, wav3, want1):
     if _read(p("cli_f.wav")) != _read(wav1_path):
         raise AssertionError("cli (f): the decoded WAV differs from the input")
     for name, word in (("g_test", ": ok ("), ("h_test_bad_frame", ": FAILED ("),
-                       ("i_test_bad_md5", "FAILED (MD5 mismatch)"), ("j_list", "STREAMINFO")):
+                       ("i_test_bad_md5", "FAILED (MD5 mismatch)"), ("j_list", "STREAMINFO"),
+                       ("k_edit", "+2 tag(s)")):
         if word not in done[name][2]:
             raise AssertionError(f"cli ({name}): no {word!r} in\n{done[name][2][-2000:]}")
+    from zigflac_tpu_torch.metaedit import edit_metadata_bytes, parse_tags_file
+
+    if _read(p("config1.edit.flac")) != edit_metadata_bytes(
+            flac1, add_tags=parse_tags_file(EDIT_TAGS), remove_tags=["TITLE"])[0]:
+        raise AssertionError("cli (k): the edited file differs from edit_metadata_bytes'")
+    if cli_main(["-t", p("config1.edit.flac"), *device]) != 0:
+        raise AssertionError("cli (k): -t fails on the edited file")
     # RUSAGE_CHILDREN reads at least this process's own peak (see
     # _CLI_WITH_PEAK), printed beside it; the check uses each child's own peak
     _log("11-cli", at_once=CLI_CHILDREN_AT_ONCE, pool_wall_s=pool_wall, runs=cli,
          rusage_children_max_rss=resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024,
          this_process_max_rss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
          rss_b_minus_a=rss_b - rss_a, rss_room=rss_room, all_equal=True)
+
+
+# One rank of phase 12b's gloo group on the shared card: argv = rank, port,
+# the config-1 WAV. A warm-up encode, then a timed one with the deposit
+# kernel's count set to 0 before it; prints one line of JSON.
+_RANK_CHILD = (
+    "import hashlib, json, sys, time\n"
+    "import torch\n"
+    "import zigflac_tpu_torch as zt\n"
+    "from zigflac_tpu_torch.models import pipeline\n"
+    "from zigflac_tpu_torch.ops import deposit\n"
+    "from zigflac_tpu_torch.parallel import distributed\n"
+    "rank, port, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]\n"
+    "t0 = time.perf_counter()\n"
+    "assert distributed.initialize(f'127.0.0.1:{port}', 2, rank, backend='gloo')\n"
+    "mesh = pipeline.DevicePipeline(zt.EncoderConfig.default(2), 16, 'cuda:0')._mesh\n"
+    "with open(path, 'rb') as f:\n"
+    "    wav = f.read()\n"
+    "zt.encode_wav_bytes(wav, device='cuda:0')\n"
+    "torch.cuda.synchronize()\n"
+    "deposit.reset_counts()\n"
+    "t1 = time.perf_counter()\n"
+    "flac = zt.encode_wav_bytes(wav, device='cuda:0')\n"
+    "torch.cuda.synchronize()\n"
+    "wall = time.perf_counter() - t1\n"
+    "print('RANK ' + json.dumps(dict(rank=rank, sha256=hashlib.sha256(flac).hexdigest(),\n"
+    "    wall_s=wall, start_to_warm_s=t1 - t0, kernel_launches=deposit.KERNEL_LAUNCHES,\n"
+    "    plain_calls=deposit.PLAIN_CALLS, mesh=[[p, str(d)] for p, d in mesh.entries])),\n"
+    "    flush=True)\n"
+    "torch.distributed.destroy_process_group()\n"
+)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase12_multi(env, album, wav1, wav32, cfg_lpc):
+    """Multi-GPU on the one card: a two-shard mesh in this process (12a),
+    two processes sharing the card over gloo (12b), and a one-process NCCL
+    group (12c). Each wall beside the single device's, from this call."""
+    import datetime
+
+    import torch.distributed as tdist
+    from zigflac_tpu_torch.parallel import distributed
+    from zigflac_tpu_torch.parallel.mesh import default_mesh, encode_compact_sharded
+
+    zt, dev, torch, pl = env.zt, env.dev, env.torch, env.pl
+    mesh = default_mesh([torch.device("cuda", 0)] * SHARDS_ON_ONE_CARD)
+
+    def sharded(wav, cfg=None):
+        """encode_wav_bytes, with an Encoder whose pipeline shards over the mesh."""
+        r = env.WavReader.from_bytes(wav)
+        cfg = cfg or zt.EncoderConfig.default(r.channels)
+        enc = zt.Encoder(cfg, r.bit_depth, dev)
+        enc.pipeline = pl.DevicePipeline(cfg, r.bit_depth, dev, mesh=mesh)
+        return enc.encode_stream(r.planar_samples(), r.flac_streaminfo(cfg.block_size),
+                                 raw_pcm_bytes=bytes(r.raw_pcm_bytes()))
+
+    def timed(path, fn):
+        fn()  # warm-up
+        env.sync()
+        t0 = time.perf_counter()
+        out, k, _ = env.counted(path, fn)
+        return out, k, time.perf_counter() - t0
+
+    calls = []
+    real_overflow = pl.DevicePipeline._encode_overflow
+
+    def spy(self, rec):
+        calls.append([int(rec["chunk"].shape[0]), int(rec["nreal"])])
+        return real_overflow(self, rec)
+
+    # -- 12a: one process, two shards on the card ------------------------------
+    flac, k, wall = timed("12a config 1, 2 shards", lambda: sharded(wav1))
+    env.check("12a config 1", flac, CONFIG1_FLAC_BYTES, CONFIG1_FLAC_SHA)
+    batches = -(-(CONFIG1_SECONDS * RATE // BLOCK) // 1024)
+    if k != SHARDS_ON_ONE_CARD * batches + 1:  # and one for the tail
+        raise AssertionError(f"12a: {k} deposit launches for {batches} batches on "
+                             f"{SHARDS_ON_ONE_CARD} shards and a tail")
+    _, k1, wall1 = timed("12a config 1, single device", lambda: zt.encode_wav_bytes(wav1, device=dev))
+    cfg1 = zt.EncoderConfig.default(2)
+    nf = 2 * SHARDS_ON_ONE_CARD + 3
+    frames = env.WavReader.from_bytes(wav1).planar_samples()[:, : nf * BLOCK]
+    frames = frames.reshape(2, nf, BLOCK).transpose(1, 0, 2).copy()
+    per = (1 << (nf - 1).bit_length()) // SHARDS_ON_ONE_CARD  # 7 frames pad to 8: 4 a shard
+    frames[:per] = np.random.default_rng(11).integers(-32768, 32768, (per, 2, BLOCK))
+    info = zt.StreamInfo(RATE, 2, 16, nf * BLOCK, BLOCK, BLOCK)
+    pl.DevicePipeline._encode_overflow = spy
+    try:
+        (rstream, rsizes), kr, _ = env.counted("12a ragged", lambda: pl.DevicePipeline(
+            cfg1, 16, dev, mesh=mesh).encode_frames_stream(frames, 0, info))
+    finally:
+        pl.DevicePipeline._encode_overflow = real_overflow
+    ragged_calls, calls[:] = list(calls), []
+    sstream, ssizes = pl.DevicePipeline(cfg1, 16, dev).encode_frames_stream(frames, 0, info)
+    if rstream != sstream or rsizes.tolist() != ssizes.tolist():
+        raise AssertionError("12a ragged: the sharded stream differs from the single device's")
+    # the first shard's four noise frames overflow tier 0; the second
+    # shard's three tonal frames and padding do not
+    if ragged_calls != [[per, per]]:
+        raise AssertionError(f"12a ragged: ladder re-encodes {ragged_calls}, expected "
+                             f"{[[per, per]]}")
+    pl.DevicePipeline._encode_overflow = spy
+    try:
+        flac, k32, wall32 = timed("12a 32-bit LPC, 2 shards", lambda: sharded(wav32, cfg_lpc))
+    finally:
+        pl.DevicePipeline._encode_overflow = real_overflow
+    lpc32_calls, calls[:] = [c for c in calls if c[0] > 1], []
+    env.check("12a 32-bit LPC", flac, *DEPTH32_FLAC["lpc"])
+    if lpc32_calls[-2:] != [[512, 512], [512, 512]]:  # the timed run's: each shard overflows
+        raise AssertionError(f"12a 32-bit LPC: ladder re-encodes {lpc32_calls}")
+    _, k32s, wall32s = timed("12a 32-bit LPC, single device",
+                             lambda: zt.encode_wav_bytes(wav32, config=cfg_lpc, device=dev))
+    _log("12a", shards=[str(d) for d in mesh.devices], config1_wall_s=wall,
+         config1_single_wall_s=wall1, config1_launches=k, config1_single_launches=k1,
+         config1_sha256=CONFIG1_FLAC_SHA, ragged_frames=nf, ragged_launches=kr,
+         ragged_overflow_reencodes=ragged_calls, ragged_equals_single=True,
+         lpc32_wall_s=wall32, lpc32_single_wall_s=wall32s, lpc32_launches=k32,
+         lpc32_single_launches=k32s, lpc32_overflow_reencodes=lpc32_calls[-2:])
+
+    # -- 12b: two processes sharing the card, gloo ------------------------------
+    port = _free_port()
+    wav1_path = os.path.join(album["indir"], "config1.wav")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_CHILD, str(r), str(port), wav1_path],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    pool_wall = time.perf_counter() - t0
+    ranks = []
+    for r, (proc, text) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"12b rank {r} exited {proc.returncode}:\n{text[-4000:]}")
+        ranks.append(json.loads(next(ln for ln in text.splitlines()
+                                     if ln.startswith("RANK "))[5:]))
+    for got in ranks:
+        if got["sha256"] != CONFIG1_FLAC_SHA or len(got["mesh"]) != 2:
+            raise AssertionError(f"12b: rank {got['rank']} gave {got}")
+        if got["kernel_launches"] != batches + 1 or got["plain_calls"]:
+            raise AssertionError(f"12b: rank {got['rank']}: {got['kernel_launches']} launches")
+    _log("12b", processes=2, backend="gloo", pool_wall_s=pool_wall, ranks=ranks,
+         single_device_wall_s=wall1, all_equal_pinned=True)
+
+    # -- 12c: a one-process NCCL group ---------------------------------------
+    port = _free_port()
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                             rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        if distributed.collective_device().type != "cuda":
+            raise AssertionError("12c: the NCCL group's collectives are not on the card")
+        t0 = time.perf_counter()
+        payload, sizes = distributed.allgather_parts(b"zigflac" * 1000, np.arange(7))
+        gather_s = time.perf_counter() - t0
+        if payload != b"zigflac" * 1000 or sizes.tolist() != list(range(7)):
+            raise AssertionError("12c: allgather_parts over NCCL changed its part")
+        one = default_mesh()
+        n = 1024
+        batch = env.WavReader.from_bytes(wav1).planar_samples()[:, : n * BLOCK]
+        batch = batch.reshape(2, n, BLOCK).transpose(1, 0, 2).astype(np.int16)
+        fns = np.arange(n, dtype=np.int64)
+        (rows, cap), kc, _ = env.counted("12c encode_compact_sharded", lambda: encode_compact_sharded(
+            batch, fns, cfg1, 16, RATE, 0, one))
+        stream, meta = rows[0]
+        got = pl._collect_aligned(stream, meta[:-1], n, cap, {"d2h_bytes": 0})
+        want = pl.DevicePipeline(cfg1, 16, dev).encode_frames_stream(
+            batch.astype(np.int32), 0, zt.StreamInfo(RATE, 2, 16, n * BLOCK, BLOCK, BLOCK))
+        if meta[-2:].tolist() != [0, 0] or got is None or got[0] != want[0]:
+            raise AssertionError("12c: config 1's batch differs from the unsharded pipeline's")
+        noise = np.random.default_rng(12).integers(-32768, 32768, (64, 2, BLOCK)).astype(np.int16)
+        rows, _ = encode_compact_sharded(noise, np.arange(64), cfg1, 16, RATE, 0, one)
+        flags = rows[0][1][-2:].tolist()
+        if flags != [1, 1]:
+            raise AssertionError(f"12c: noise batch overflow flags {flags}, expected [1, 1]")
+    finally:
+        tdist.destroy_process_group()
+    _log("12c", backend="nccl", world_size=1, allgather_s=gather_s, launches=kc,
+         config1_batch_equals_single=True, noise_overflow_flags=flags,
+         note="world size 1: a scaling number needs a machine with more than one card")
 
 
 # the cases of tests/test_regression_corpus.py with their synthesis recipe
@@ -967,6 +1201,7 @@ def main() -> int:
 
     import zigflac_tpu_torch as zt
     from zigflac_tpu_torch.models import pipeline as pl
+    from zigflac_tpu_torch import native
     from zigflac_tpu_torch.native import md5
     from zigflac_tpu_torch import decoder
     from zigflac_tpu_torch.ops import _build, analyze, bitpack, deposit, lpc, synth
@@ -1011,6 +1246,7 @@ def main() -> int:
     pool.shutdown()
     _log("1", build_and_inputs_s=round(time.perf_counter() - t0, 3), inputs_s=inputs_s,
          nvcc_s=_build.BUILD_SECONDS, gxx_s=_build.NATIVE_BUILD_SECONDS,
+         have_native=native.HAVE_NATIVE, native_module=getattr(native._n, "__name__", None),
          ptxas=[ln for ln in _build.BUILD_LOG.splitlines() if "Used" in ln or "spill" in ln])
 
     # -- phase 2: kernel against plain on the card ----------------------------
@@ -1056,8 +1292,7 @@ def main() -> int:
         n = min(1024, s.shape[1] // BLOCK)
         frames = torch.from_numpy(
             s[:, : n * BLOCK].reshape(2, n, BLOCK).transpose(1, 0, 2).copy()).to(dev)
-        hs, max_words, _ = pl.DevicePipeline(cfg, r.bit_depth, dev)._shape(
-            2, BLOCK, RATE, tier, n)
+        hs, max_words, _ = pl.compact_shape(cfg, r.bit_depth, 2, BLOCK, RATE, tier, n)
         plan = analyze.plan_frames(frames, r.bit_depth, cfg)
         dep_cum, _, dep_val, dep_nbv = bitpack.frame_symbol_stream(
             plan, torch.arange(n, device=dev), hs, BLOCK, cfg.max_rice_order,
@@ -1310,8 +1545,8 @@ def main() -> int:
     env = SimpleNamespace(zt=zt, dev=dev, torch=torch, counted=counted,
                           counted_decode=counted_decode, check=check,
                           timed_encode=timed_encode, sync=torch.cuda.synchronize,
-                          pipeline_cls=pl.DevicePipeline, decoder=decoder, synth=synth,
-                          build=_build)
+                          pipeline_cls=pl.DevicePipeline, pl=pl, decoder=decoder, synth=synth,
+                          build=_build, WavReader=WavReader)
     synth_entry = phase2_synth(env, {"config1": (flac1, 16), "config3": (flac3, 16),
                                      "depth32_lpc": (flac32, 32),
                                      "antiphase32": (flac_anti, 32)})
@@ -1325,6 +1560,7 @@ def main() -> int:
                        "config3": (flac3, wav3), "depth32_lpc": (flac32, wav32),
                        "antiphase32": (flac_anti, wav_anti)}, long_file)
         phase11_cli(env, tmp, album, long_file, wav3, CONFIG1_FLAC_SHA)
+        phase12_multi(env, album, wav1, wav32, cfg_lpc)
     _log("end", wall_s=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [synth_entry, {

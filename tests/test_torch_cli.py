@@ -3,8 +3,8 @@ called in-process with ``--device cpu``, against the JAX package's CLI on
 its device backend under JAX_PLATFORMS=cpu: single file with the metadata
 flags, ``--batch`` over a directory, Ogg-FLAC output, ``--stats``, the exit
 codes, the decode-side modes (``-d`` with ``--range``, ``--verify`` and
-``--threads``, ``-t``, ``-l``, ``--verify`` after an encode), and the edit
-flags, whose mode is not ported.
+``--threads``, ``-t``, ``-l``, ``--verify`` after an encode), and the
+metadata editor (``-e`` with every option), which touches no device.
 
 Tolerance: exact equality of the output bytes, and of the printed lines
 once the milliseconds they report are masked."""
@@ -120,15 +120,18 @@ def test_exit_codes(tmp_path, rng, case, code):
                                   ["--remove-application", "abcd"], ["--remove-cuesheet"],
                                   ["-e", "--tag", "A=b"]])
 def test_unported_modes_are_refused(tmp_path, rng, flag, capsys):
-    """The edit mode and its options are not ported yet: the CLI refuses
-    them with exit 1, says where the work is queued, and writes nothing."""
+    """The edit mode and its options, once refused, are now taken as the
+    JAX CLI takes them: with an input and an output path ``-e`` exits 1
+    (it edits in place) and writes nothing, and the edit options alone are
+    ignored by an encode. Same exit code, same printed lines, same file."""
     wav = _write(tmp_path / "in.wav", rng, 1000)
-    out = tmp_path / "o.flac"
-    with pytest.raises(SystemExit) as exc:
-        cli.main([wav, str(out), "--device", "cpu", *flag])
-    assert exc.value.code == 1
-    assert "ROADMAP.md item 13" in capsys.readouterr().err
-    assert not out.exists()
+    port_rc, jax_rc = _both(capsys, [wav, str(tmp_path / "p.flac"), "--device", "cpu", *flag],
+                            [wav, str(tmp_path / "j.flac"), "--backend", "golden", *flag])
+    assert port_rc == jax_rc == (1 if flag[0] in ("-e", "--edit") else 0)
+    if port_rc == 0:
+        assert (tmp_path / "p.flac").read_bytes() == (tmp_path / "j.flac").read_bytes()
+    else:
+        assert not (tmp_path / "p.flac").exists() and not (tmp_path / "j.flac").exists()
 
 
 @pytest.mark.parametrize("batch", [False, True])
@@ -320,3 +323,88 @@ def test_decode_modes_without_a_card_exit_nonzero(flac_file, tmp_path, monkeypat
     assert "torch.cuda.is_available() is false" in capsys.readouterr().err
     assert not (tmp_path / "o.wav").exists()
     assert cli.main(argv + ["--threads", "2"]) == 0
+
+
+# -- the metadata editor --------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def edit_inputs(tmp_path_factory):
+    """A FLAC with a tag and PADDING, an Ogg-FLAC, and the side files the
+    edit options read."""
+    d = tmp_path_factory.mktemp("cli_edit")
+    wav = _write(d / "in.wav", np.random.default_rng(0xED17), 3 * 1024 + 5)
+    assert cli.main([wav, str(d / "a.flac"), "--device", "cpu", *BLOCK, "--tag", "TITLE=first",
+                     "--padding", "512"]) == 0
+    assert cli.main([wav, str(d / "a.oga"), "--device", "cpu", *BLOCK]) == 0
+    (d / "cover.png").write_bytes(b"\x89PNG\r\n\x1a\n" + b"fakepng" * 30)
+    (d / "tags.txt").write_text("ALBUM=someday\nTITLE=track one\n")
+    (d / "bad_tags.txt").write_text("oops\n")
+    (d / "app.bin").write_bytes(b"\x01\x02\x03opaque")
+    (d / "x.cue").write_text("TRACK 01 AUDIO\nINDEX 01 00:00:00\n")
+    return d
+
+
+# each: the edits made in turn on one copy of a.flac (or a.oga), with the
+# exit code each must give
+EDITS = {
+    "tags and picture": [(["--tag", "ALBUM=a", "--remove-tag", "TITLE", "--picture",
+                           "cover.png"], 0)],
+    "export picture": [(["--picture", "cover.png"], 0), (["--export-picture", "out.png"], 0),
+                       (["--export-picture", "out2.png", "--tag", "A=b"], 0)],
+    "no picture to export": [(["--export-picture", "out.png"], 1)],
+    "remove pictures": [(["--picture", "cover.png"], 0), (["--remove-pictures"], 0)],
+    "metaflac long tail": [(["--import-tags-from", "tags.txt", "--set-application",
+                             "Ztst=app.bin", "--cuesheet", "x.cue"], 0),
+                           (["--remove-application", "Ztst", "--remove-cuesheet"], 0)],
+    "rewrite past the padding": [(["--tag", "LYRICS=" + "x" * 2048], 0)],
+    "padding resize": [(["--padding", "4096"], 0), (["--tag", "A=b"], 0)],
+    "bad tag": [(["--tag", "NOEQUALS"], 1)],
+    "application without a file": [(["--set-application", "nofile"], 1)],
+    "missing application file": [(["--set-application", "Ztst=nope.bin"], 1)],
+    "bad tags file": [(["--import-tags-from", "bad_tags.txt"], 2)],
+    "missing tags file": [(["--import-tags-from", "nope.txt"], 1)],
+    "missing cue sheet": [(["--cuesheet", "nope.cue"], 1)],
+    "non-ASCII application id": [(["--remove-application", "Zt\u00e9"], 1)],
+    "bad application id": [(["--set-application", "toolong=app.bin"], 2)],
+    "no change": [([], 0)],
+    "ogg input": [(["--tag", "A=b"], 2)],
+    "missing input": [(["--tag", "A=b"], 1)],
+    "output path": [(["--tag", "A=b"], 1)],
+}
+
+
+@pytest.mark.parametrize("case", list(EDITS))
+def test_edit_equals_jax_cli(edit_inputs, tmp_path, monkeypatch, capsys, case):
+    """``-e`` with every option the JAX CLI's takes: the same exit code,
+    printed lines and file bytes (the edited file, an exported picture),
+    without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = "a.oga" if case == "ogg input" else "a.flac"
+    name = "nope.flac" if case == "missing input" else "x" + src[1:]
+    files = {}
+    for side, run in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / side
+        d.mkdir()
+        for f in edit_inputs.iterdir():
+            (d / f.name).write_bytes(f.read_bytes())
+        (d / ("x" + src[1:])).write_bytes((edit_inputs / src).read_bytes())
+        monkeypatch.chdir(d)
+        out = ["other.flac"] if case == "output path" else []
+        files[side] = [(run([name, *out, "-e", *flags]), capsys.readouterr())
+                       for flags, _ in EDITS[case]]
+        files[side].append({f.name: f.read_bytes() for f in sorted(d.iterdir())})
+    for (port_rc, port_out), (jax_rc, jax_out), (_, code) in zip(
+            files["port"][:-1], files["jax"][:-1], EDITS[case]):
+        assert port_rc == jax_rc == code
+        assert (port_out.out, port_out.err) == (jax_out.out, jax_out.err)
+    assert files["port"][-1] == files["jax"][-1]
+
+
+def test_edited_file_still_verifies(edit_inputs, tmp_path, capsys):
+    """After ``-e``, ``-t`` on the port's CLI passes: only the head changed."""
+    flac = tmp_path / "a.flac"
+    flac.write_bytes((edit_inputs / "a.flac").read_bytes())
+    assert cli.main([str(flac), "-e", "--remove-tag", "TITLE", "--import-tags-from",
+                     str(edit_inputs / "tags.txt")]) == 0
+    assert cli.main(["-t", str(flac), "--device", "cpu"]) == 0
+    assert ": ok (" in capsys.readouterr().out

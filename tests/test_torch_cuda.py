@@ -420,3 +420,64 @@ def test_decode_cli_on_card(rng, tmp_path):
     bad[len(bad) // 2] ^= 0xFF
     (tmp_path / "bad.flac").write_bytes(bytes(bad))
     assert cli.main(["-t", str(tmp_path / "bad.flac"), "--device", "cuda"]) == 2
+
+
+def test_decoder_synthesis_call_does_not_synchronize(rng, monkeypatch):
+    """The decoder's synthesis call (range checked on the host) runs under
+    torch.cuda.set_sync_debug_mode("error"): it never waits for the card.
+    Public synthesize_batch keeps its range check and its ValueError."""
+    from zigflac_tpu_torch import decoder
+
+    wav = _wav(rng, 2 * 4096 + 33)
+    flac = zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu")
+    real, calls = synth._synthesize_unchecked, []
+
+    def strict(*args):
+        calls.append(1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(synth, "_synthesize_unchecked", strict)
+    decoder.decode_flac(flac, device="cuda")  # the kernel built and loaded
+    got = decoder.decode_flac(flac, device="cuda")
+    assert got.md5_ok and len(calls) == 4
+    args = [torch.zeros((2, 8), dtype=torch.int64, device="cuda"),
+            torch.zeros((2, 32), dtype=torch.int64, device="cuda"),
+            torch.tensor([0, 64], device="cuda"), torch.zeros(2, dtype=torch.int64, device="cuda"),
+            torch.zeros(2, dtype=torch.int64, device="cuda")]
+    with pytest.raises(ValueError, match="0..63"):
+        synth.synthesize_batch(*args)
+
+
+@pytest.mark.parametrize("ndev", [2, 4])
+@pytest.mark.parametrize("fields", [dict(), dict(prediction="lpc")], ids=["fixed", "lpc"])
+def test_sharded_on_one_card_equals_single(rng, ndev, fields):
+    """A mesh of the one card repeated: every full batch launches the
+    deposit kernel once a shard, and the bytes equal the CPU's single
+    device, with a ragged last batch whose noisy first shard alone
+    re-encodes through the capacity ladder."""
+    from zigflac_tpu_torch.metadata import StreamInfo
+    from zigflac_tpu_torch.parallel.mesh import default_mesh
+
+    B, bs = 1024, 4 * ndev
+    nf = 2 * bs + ndev + 1  # two full batches, then ndev + 1 frames: 2 a shard
+    t = np.arange(nf * B)
+    x = 0.3 * 32767 * np.sin(2 * np.pi * 440 * t / 44100) + rng.normal(0, 256, (2, nf * B))
+    frames = np.round(x).astype(np.int32).reshape(2, nf, B).transpose(1, 0, 2).copy()
+    frames[2 * bs : 2 * bs + 2] = rng.integers(-(1 << 15), 1 << 15, (2, 2, B))
+    info = StreamInfo(44100, 2, 16, nf * B, B, B)
+    cfg = EncoderConfig(block_size=B, **fields)
+    sharded = pipeline.DevicePipeline(cfg, 16, "cuda", batch_size=bs,
+                                      mesh=default_mesh([torch.device("cuda", 0)] * ndev))
+    deposit.reset_counts()
+    got = sharded.encode_frames_stream(frames, 0, info)
+    torch.cuda.synchronize()
+    # full batches, the ragged batch's shards with a real frame, the ladder
+    assert deposit.KERNEL_LAUNCHES == 2 * ndev + (ndev + 2) // 2 + 1
+    assert deposit.PLAIN_CALLS == 0
+    want = pipeline.DevicePipeline(cfg, 16, "cpu", batch_size=bs).encode_frames_stream(
+        frames, 0, info)
+    assert got[0] == want[0] and got[1].tolist() == want[1].tolist()

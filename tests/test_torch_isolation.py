@@ -17,15 +17,19 @@ PORT_MODULES = sorted(
 )
 # host modules the port copies (the JAX package's __init__ imports jax, so
 # the machine with the card cannot import them from there)
-COPIES = ["crc.py", "metadata.py", "native.py", "ogg.py", "wav.py", "utils/config.py"]
+COPIES = ["crc.py", "metadata.py", "metaedit.py", "native.py", "ogg.py", "wav.py",
+          "utils/config.py", "utils/sndfile.py"]
 
 
 def test_every_module_is_checked():
-    """The checks below cover every module of the port, the LPC module and
-    the decoder's modules included."""
+    """The checks below cover every module of the port, the LPC module, the
+    decoder's modules, the multi-device modules and the metadata editor
+    included."""
     assert {"zigflac_tpu_torch.ops.lpc", "zigflac_tpu_torch.ops.analyze",
             "zigflac_tpu_torch.ops.deposit", "zigflac_tpu_torch.decoder",
-            "zigflac_tpu_torch.ops.synth"} <= set(PORT_MODULES)
+            "zigflac_tpu_torch.ops.synth", "zigflac_tpu_torch.parallel.mesh",
+            "zigflac_tpu_torch.parallel.distributed",
+            "zigflac_tpu_torch.metaedit"} <= set(PORT_MODULES)
 
 
 def test_port_imports_without_jax():

@@ -20,13 +20,14 @@ output; FLAC or Ogg-FLAC back to PCM with frame CRCs and the STREAMINFO
 MD5 checked (``decode_flac``, ``decode_file``, ``decode_range``,
 ``verify_flac``), the frame bit parse on the host in C++ (built with g++ at
 first use); and the ``wav2flac`` CLI's encode, decode, test, list and
-verify modes (``python -m zigflac_tpu_torch.cli``). Not covered yet:
-metadata editing (``-e``) and multi-GPU.
+verify modes and the metadata editor (``python -m zigflac_tpu_torch.cli``,
+``-e``); every batch sharded over several cards or ``torch.distributed``
+processes (``parallel/``), byte for byte as on one device.
 """
 
 from .decoder import decode_file, decode_flac, decode_range, verify_flac
 
-from .metadata import StreamInfo
+from .metadata import BlockType, StreamInfo
 from .models.encoder import (
     Encoder,
     encode_file,
@@ -39,7 +40,10 @@ from .models.encoder import (
 from .utils.config import EncoderConfig
 from .wav import WavFormatError, WavReader, WavStreamReader
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "BlockType",
     "Encoder",
     "EncoderConfig",
     "StreamInfo",
@@ -56,4 +60,5 @@ __all__ = [
     "encode_wav_bytes",
     "encode_wav_bytes_many",
     "verify_flac",
+    "__version__",
 ]

@@ -9,10 +9,10 @@ package's: the encode flags (block size, prediction mode, Rice limits, LPC
 order, wasted bits, tags, SEEKTABLE, PADDING, PICTURE, CUESHEET, Ogg-FLAC
 output, ``--batch`` over a directory, ``--verify``) and the decode-side
 modes (``-d/--decode`` with ``--range`` and ``--verify``, ``-t/--test``,
-``-l/--list``). ``--device`` picks the torch device, the card unless the
-caller asks for the CPU; ``--threads N`` decodes on the all-C++ path with N
-worker threads instead, which touches no device. ``-e/--edit`` and its
-options are refused until the metadata editor is ported.
+``-l/--list``) and the metadata editor (``-e/--edit`` with its options).
+``--device`` picks the torch device, the card unless the caller asks for
+the CPU; ``--threads N`` decodes on the all-C++ path with N worker threads
+instead, which touches no device. ``-l`` and ``-e`` touch no device either.
 """
 
 from __future__ import annotations
@@ -32,15 +32,6 @@ class _Parser(argparse.ArgumentParser):
         raise SystemExit(1)
 
 
-# the options of -e/--edit and where argparse stores them
-_EDIT_DEST = {
-    "--remove-tag": "remove_tags", "--set-application": "set_applications",
-    "--remove-application": "remove_applications", "--export-picture": "export_picture",
-    "--import-tags-from": "import_tags_from", "--remove-pictures": "remove_pictures",
-    "--remove-cuesheet": "remove_cuesheet",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(
         prog="wav2flac",
@@ -53,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "output", nargs="?", default=None,
         help="output FLAC file (WAV with --decode; output directory with "
-        "--batch; omitted with --list and --test)",
+        "--batch; omitted with --list, --test and --edit)",
     )
     p.add_argument(
         "-d", "--decode", action="store_true",
@@ -70,17 +61,53 @@ def build_parser() -> argparse.ArgumentParser:
         "STREAMINFO MD5) without writing any output; exit 0 ok, 2 "
         "malformed, 3 verification failure",
     )
-    # the metadata editor is not ported: these are accepted only to be
-    # refused with one message (see main)
-    p.add_argument("-e", "--edit", action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--remove-tag", "--set-application", "--remove-application"):
-        p.add_argument(flag, action="append", default=[], dest=_EDIT_DEST[flag],
-                       help=argparse.SUPPRESS)
-    for flag in ("--export-picture", "--import-tags-from"):
-        p.add_argument(flag, default=None, dest=_EDIT_DEST[flag], help=argparse.SUPPRESS)
-    for flag in ("--remove-pictures", "--remove-cuesheet"):
-        p.add_argument(flag, action="store_true", dest=_EDIT_DEST[flag],
-                       help=argparse.SUPPRESS)
+    p.add_argument(
+        "-e", "--edit", action="store_true",
+        help="edit the metadata of an existing FLAC file in place "
+        "(metaflac-style; uses --tag/--remove-tag/--import-tags-from/"
+        "--picture/--remove-pictures/--export-picture/--set-application/"
+        "--remove-application/--cuesheet/--remove-cuesheet/--padding; "
+        "reuses PADDING slack so the audio frames are not rewritten when "
+        "the new chain fits)",
+    )
+    p.add_argument(
+        "--remove-tag", action="append", default=[], metavar="NAME",
+        dest="remove_tags",
+        help="with --edit: remove every Vorbis comment with this field "
+        "name (case-insensitive, repeatable)",
+    )
+    p.add_argument(
+        "--remove-pictures", action="store_true",
+        help="with --edit: drop all PICTURE blocks",
+    )
+    p.add_argument(
+        "--export-picture", metavar="OUT", default=None,
+        help="with --edit: write the first embedded picture's image "
+        "bytes to OUT (no other change unless combined with edit flags)",
+    )
+    p.add_argument(
+        "--import-tags-from", metavar="FILE", default=None,
+        dest="import_tags_from",
+        help="with --edit: append Vorbis comments read from FILE "
+        "(one NAME=VALUE per line, metaflac format)",
+    )
+    p.add_argument(
+        "--set-application", action="append", default=[],
+        metavar="ID=FILE", dest="set_applications",
+        help="with --edit: set the APPLICATION block with 4-char id ID "
+        "to FILE's bytes, replacing an existing block with that id "
+        "(repeatable)",
+    )
+    p.add_argument(
+        "--remove-application", action="append", default=[],
+        metavar="ID", dest="remove_applications",
+        help="with --edit: drop APPLICATION blocks with this 4-char id "
+        "(repeatable)",
+    )
+    p.add_argument(
+        "--remove-cuesheet", action="store_true",
+        help="with --edit: drop the CUESHEET block",
+    )
     p.add_argument(
         "--batch", action="store_true",
         help="encode every .wav in the input directory into the output "
@@ -121,7 +148,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--padding", type=int, default=None, metavar="BYTES",
-        help="append a PADDING metadata block of BYTES zero bytes",
+        help="append a PADDING metadata block of BYTES zero bytes "
+        "(with --edit: set the padding to exactly BYTES, forcing a "
+        "rewrite if it changes the chain size)",
     )
     p.add_argument(
         "--picture", metavar="IMAGE", default=None,
@@ -129,7 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--cuesheet", metavar="FILE.cue", default=None,
-        help="import a standard .cue sheet as a CUESHEET metadata block",
+        help="import a standard .cue sheet as a CUESHEET metadata block "
+        "(at encode time, or into an existing file with --edit)",
     )
     p.add_argument(
         "--range", metavar="START:END", default=None, dest="time_range",
@@ -354,6 +384,135 @@ def _test_main(args, device, backend) -> int:
     return 0
 
 
+def _edit_main(args) -> int:
+    """--edit: metaflac-style in-place metadata editing of an existing
+    FLAC file (the reference only writes metadata at encode time,
+    libFLAC/metadata.zig; re-tagging finished files is the other half of
+    that surface)."""
+    from .metaedit import (
+        MetaEditError,
+        edit_metadata_file,
+        export_pictures,
+    )
+
+    if args.output is not None:
+        print("error: --edit works in place; no output path", file=sys.stderr)
+        return 1
+    tags = []
+    for t in args.tag:
+        if "=" not in t:
+            print(f"error: --tag expects NAME=VALUE, got {t!r}",
+                  file=sys.stderr)
+            return 1
+        tags.append(tuple(t.split("=", 1)))
+    picture = None
+    if args.picture:
+        with open(args.picture, "rb") as imf:
+            img = imf.read()
+        mime = (
+            "image/png" if img[:8] == b"\x89PNG\r\n\x1a\n" else "image/jpeg"
+        )
+        picture = (img, mime)
+    set_apps = []
+    for spec in args.set_applications:
+        if "=" not in spec:
+            print(f"error: --set-application expects ID=FILE, got {spec!r}",
+                  file=sys.stderr)
+            return 1
+        app_id, app_file = spec.split("=", 1)
+        try:
+            with open(app_file, "rb") as af:
+                set_apps.append((app_id.encode("ascii"), af.read()))
+        except (FileNotFoundError, UnicodeEncodeError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    cuesheet_text = None
+    if args.cuesheet:
+        try:
+            with open(args.cuesheet, "r", encoding="utf-8",
+                      errors="replace") as cf:
+                cuesheet_text = cf.read()
+        except FileNotFoundError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    import_tags = []
+    if args.import_tags_from:
+        from .metaedit import parse_tags_file
+
+        try:
+            with open(args.import_tags_from, "r", encoding="utf-8",
+                      errors="replace") as tf:
+                import_tags = parse_tags_file(tf.read())
+        except FileNotFoundError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        except MetaEditError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+    try:
+        remove_apps = [a.encode("ascii") for a in args.remove_applications]
+    except UnicodeEncodeError as e:
+        print(f"error: application IDs must be ASCII: {e}", file=sys.stderr)
+        return 1
+    try:
+        if args.export_picture:
+            with open(args.input, "rb") as f:
+                pics = export_pictures(f.read())
+            if not pics:
+                print("error: no PICTURE block in stream", file=sys.stderr)
+                return 1
+            mime, image = pics[0]
+            with open(args.export_picture, "wb") as out:
+                out.write(image)
+            print(f"exported {len(image)} bytes ({mime}) "
+                  f"to {args.export_picture}")
+            if not (tags or import_tags or args.remove_tags or picture
+                    or args.remove_pictures or set_apps
+                    or args.remove_applications or cuesheet_text is not None
+                    or args.remove_cuesheet or args.padding is not None):
+                return 0
+        plan = edit_metadata_file(
+            args.input,
+            add_tags=tags + import_tags,
+            remove_tags=args.remove_tags,
+            picture=picture,
+            remove_pictures=args.remove_pictures,
+            padding=args.padding,
+            set_applications=set_apps,
+            remove_applications=remove_apps,
+            cuesheet=cuesheet_text,
+            remove_cuesheet=args.remove_cuesheet,
+        )
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except MetaEditError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    changes = []
+    if plan.tags_added:
+        changes.append(f"+{plan.tags_added} tag(s)")
+    if plan.tags_removed:
+        changes.append(f"-{plan.tags_removed} tag(s)")
+    if plan.picture_added:
+        changes.append("+picture")
+    if plan.pictures_removed:
+        changes.append(f"-{plan.pictures_removed} picture(s)")
+    if plan.applications_set:
+        changes.append(f"+{plan.applications_set} application(s)")
+    if plan.applications_removed:
+        changes.append(f"-{plan.applications_removed} application(s)")
+    if plan.cuesheet_set:
+        changes.append("+cuesheet")
+    if plan.cuesheet_removed:
+        changes.append("-cuesheet")
+    how = "in place" if plan.in_place else "rewritten"
+    print(f"{args.input}: {', '.join(changes) or 'no change'} "
+          f"({how}, padding {plan.padding})")
+    return 0
+
+
 def _batch_main(args, cfg_kwargs, device) -> int:
     """Multi-file encode (BASELINE config 4): every .wav under the input
     directory streams into <name>.flac in the output directory, with frames
@@ -413,10 +572,10 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    if args.edit or any(getattr(args, dest) for dest in _EDIT_DEST.values()):
-        parser.error("-e/--edit and its options are not ported yet (ROADMAP.md item 13)")
     if args.list_meta:
         return _list_main(args)
+    if args.edit and not args.test:  # -t wins over -e, as in the JAX CLI
+        return _edit_main(args)
 
     from .models.encoder import encode_file
     from .models.pipeline import resolve_device
@@ -438,7 +597,7 @@ def main(argv=None) -> int:
     if args.test:
         return _test_main(args, device, backend)
     if args.output is None:
-        parser.error("output path required (omit it only with --list/--test)")
+        parser.error("output path required (omit it only with --list/--test/--edit)")
     if args.decode:
         return _decode_main(args, device, backend)
 

@@ -235,9 +235,14 @@ def _decode_batch(
             _n.synthesize(vb, qb, sb, cb, n, C, B), np.int64
         ).reshape(n, C, B)
     else:
-        from .ops.synth import recombine_stereo, synthesize_batch
+        from .ops.synth import _synthesize_unchecked, recombine_stereo
 
         M = n * C
+        # synthesize_batch's range check, made here on the host, so the
+        # synthesis call never waits for the device
+        sow = np.frombuffer(sb, np.int32).reshape(M, 3)
+        if ((sow[:, 0] < 0) | (sow[:, 0] > 63) | (sow[:, 2] < 0) | (sow[:, 2] > 63)).any():
+            raise FlacDecodeError("shift and wasted must lie in 0..63")
         values = _to_device(vb, np.int64, (M, B), device)
         qco = _to_device(qb, np.int64, (M, 32), device)
         sow = _to_device(sb, np.int32, (M, 3), device).to(torch.int64)
@@ -245,7 +250,7 @@ def _decode_batch(
         if timed:
             start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-        wire = synthesize_batch(values, qco, sow[:, 0], sow[:, 1], sow[:, 2])
+        wire = _synthesize_unchecked(values, qco, sow[:, 0], sow[:, 1], sow[:, 2])
         if timed:
             stop.record()
             STATS.setdefault("synth_events", []).append((start, stop))

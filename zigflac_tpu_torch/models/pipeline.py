@@ -11,10 +11,15 @@ the output bytes. Outputs come back as one dense stream sized by a capacity
 ladder (compressed-size budget -> verbatim-size budget -> exact padded
 words). Batches are dispatched before any is collected, so on a CUDA device
 the host work that follows overlaps the device's.
+
+With a mesh (``parallel/mesh.py``) each batch is split over several devices
+or processes: every shard runs the same batch function on its own rows and
+device, and an overflowing shard re-encodes alone through the ladder.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -53,6 +58,54 @@ CAPACITY_LADDER = ((0.75, 1.25), (1.15, None))
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length() if n > 1 else 1
+
+
+def compact_shape(config: EncoderConfig, depth: int, c: int, block_size: int,
+                  sample_rate: int, tier, batch: int):
+    """(hstatic, max_words, capb) of one program shape; tier None is the
+    exact-capacity words path."""
+    hstatic = header_static(block_size, sample_rate, depth)
+    n_wire = 2 if config.stereo_auto else c
+    if tier is None:
+        return hstatic, max_frame_words(block_size, n_wire, depth), None
+    stream_ratio, words_ratio = CAPACITY_LADDER[tier]
+    max_words = max_frame_words(block_size, n_wire, depth, words_ratio)
+    raw_bytes = batch * block_size * c * max(depth, 8) // 8
+    # slack: per-frame ALIGN_W-group round-up (4*ALIGN_W bytes) + headroom
+    capb = int(raw_bytes * stream_ratio) + (4 * ALIGN_W + 32) * batch
+    return hstatic, max_words, capb
+
+
+def to_device(a: np.ndarray, device: torch.device, stats: dict | None = None) -> torch.Tensor:
+    """Host array -> device tensor; from pinned memory on a CUDA device,
+    so the copy does not wait for the work already queued. Adds the bytes
+    to ``stats["h2d_bytes"]`` when given."""
+    if stats is not None:
+        stats["h2d_bytes"] += a.nbytes
+    t = torch.from_numpy(np.require(a, requirements="CW"))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def _product_mesh(device: torch.device):
+    """The mesh the pipeline shards over (None: a single device): the
+    processes of a ``torch.distributed`` group, each with its own device,
+    or, in one process, every visible card when ``device`` is ``cuda``
+    with no index and more than one card is visible. ZIGFLAC_MESH=0
+    forces a single device."""
+    if os.environ.get("ZIGFLAC_MESH", "1") == "0":
+        return None
+    from ..parallel import distributed
+    from ..parallel.mesh import default_mesh
+
+    if distributed.process_count() > 1:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return default_mesh([device])
+    if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
+        return default_mesh()
+    return None
 
 
 def resolve_device(device) -> torch.device:
@@ -137,7 +190,9 @@ def _collect_aligned(stream: torch.Tensor, meta: torch.Tensor, nreal: int,
 
 
 class DevicePipeline:
-    """Static config for one (config, bit_depth) on one device."""
+    """Static config for one (config, bit_depth) on one device, or sharded
+    over a mesh: ``mesh`` if given, else the default rule of
+    ``_product_mesh``."""
 
     def __init__(
         self,
@@ -145,6 +200,7 @@ class DevicePipeline:
         bit_depth: int,
         device: torch.device = "cuda",
         batch_size: int = DEFAULT_BATCH,
+        mesh=None,
     ) -> None:
         self.config = config
         self.bit_depth = bit_depth
@@ -152,42 +208,29 @@ class DevicePipeline:
         self.batch_size = batch_size
         # host<->device transfer accounting for this pipeline
         self.transfer_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
+        # None: a single device
+        self._mesh = mesh if mesh is not None else _product_mesh(self.device)
 
-    def _shape(self, c: int, block_size: int, sample_rate: int, tier, batch: int):
-        """(hstatic, max_words, capb) of one program shape; tier None is the
-        exact-capacity words path."""
-        hstatic = header_static(block_size, sample_rate, self.bit_depth)
-        n_wire = 2 if self.config.stereo_auto else c
-        if tier is None:
-            return hstatic, max_frame_words(block_size, n_wire, self.bit_depth), None
-        stream_ratio, words_ratio = CAPACITY_LADDER[tier]
-        max_words = max_frame_words(block_size, n_wire, self.bit_depth, words_ratio)
-        raw_bytes = batch * block_size * c * max(self.bit_depth, 8) // 8
-        # slack: per-frame ALIGN_W-group round-up (4*ALIGN_W bytes) + headroom
-        capb = int(raw_bytes * stream_ratio) + (4 * ALIGN_W + 32) * batch
-        return hstatic, max_words, capb
+    def _to_device(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return to_device(a, self.device if device is None else device, self.transfer_stats)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor; from pinned memory on a CUDA device,
-        so the copy does not wait for the work already queued."""
-        self.transfer_stats["h2d_bytes"] += a.nbytes
-        t = torch.from_numpy(np.require(a, requirements="CW"))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
-    def _feed(self, chunk: np.ndarray) -> torch.Tensor:
+    def _narrow(self, chunk: np.ndarray) -> np.ndarray:
         if self.bit_depth <= 16:
             chunk = chunk.astype(np.int16)  # halves the h2d volume
-        return self._to_device(chunk).to(torch.int32)
+        return chunk
+
+    def _feed(self, chunk: np.ndarray, device=None) -> torch.Tensor:
+        return self._to_device(self._narrow(chunk), device).to(torch.int32)
 
     def _run_compact(self, rec: dict, tier: int):
         chunk = rec["chunk"]
         _, c, B = chunk.shape
-        hstatic, max_words, capb = self._shape(c, B, rec["rate"], tier, chunk.shape[0])
+        device = rec.get("device")  # a shard's, on a mesh
+        hstatic, max_words, capb = compact_shape(self.config, self.bit_depth, c, B,
+                                                 rec["rate"], tier, chunk.shape[0])
         stream, meta = _encode_batch_compact(
-            self._feed(chunk),
-            self._to_device(rec["fns"].astype(np.int64)),
+            self._feed(chunk, device),
+            self._to_device(rec["fns"].astype(np.int64), device),
             config=self.config, depth=self.bit_depth, hstatic=hstatic,
             block_size=B, max_words=max_words, capb=capb,
         )
@@ -239,14 +282,25 @@ class DevicePipeline:
     def dispatch_batch(self, chunk: np.ndarray, fns: np.ndarray, info) -> dict:
         """Dispatch one batch of full frames ``[n<=bs, C, B]`` at tier-0
         capacity. Returns a pending handle for ``collect_batch``. The batch
-        is padded to a power of two by repeating its last frame."""
+        is padded to a power of two (on a mesh, then to a multiple of its
+        size) by repeating its last frame."""
         nreal = chunk.shape[0]
+        ndev = self._mesh.size if self._mesh is not None else 1
         bucket = min(self.batch_size, _next_pow2(nreal))
+        if bucket % ndev:  # shard evenly over the mesh
+            bucket += ndev - bucket % ndev
         if nreal < bucket:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bucket - nreal, 0)])
             fns = np.concatenate([fns, np.repeat(fns[-1:], bucket - nreal)])
         rec = {"chunk": chunk, "nreal": nreal, "fns": fns, "rate": info.sample_rate}
-        rec["out"] = self._run_compact(rec, 0)
+        if self._mesh is None:
+            rec["out"] = self._run_compact(rec, 0)
+        else:
+            from ..parallel.mesh import encode_compact_sharded
+
+            rec["rows"] = encode_compact_sharded(
+                self._narrow(chunk), fns, self.config, self.bit_depth, info.sample_rate, 0,
+                self._mesh, nreal=nreal, transfer_stats=self.transfer_stats)
         return rec
 
     def dispatch_tail(self, tail: np.ndarray, frame_number: int, info) -> dict:
@@ -259,13 +313,45 @@ class DevicePipeline:
 
     def collect_batch(self, pending: dict, info) -> Tuple[bytes, np.ndarray]:
         """Fetch one dispatched batch's frame bytes + sizes, re-encoding
-        through the capacity ladder on overflow."""
+        through the capacity ladder on overflow. A sharded batch collects
+        each of this process's shards like a single-device batch, and ONLY
+        overflowing shards re-encode, each on its own device with its own
+        rows; then the processes exchange their parts."""
+        if "rows" in pending:
+            return self._collect_sharded(pending)
         stream, meta, frame_cap = pending["out"]
         got = _collect_aligned(stream, meta, pending["nreal"], frame_cap,
                                self.transfer_stats)
         if got is None:
             got = self._encode_overflow(pending)
         return got
+
+    def _collect_sharded(self, pending: dict) -> Tuple[bytes, np.ndarray]:
+        from ..parallel import distributed
+
+        rows, frame_cap = pending["rows"]
+        nreal = pending["nreal"]
+        per = pending["chunk"].shape[0] // self._mesh.size
+        parts: List[bytes] = []
+        szs: List[np.ndarray] = []
+        for s in sorted(rows):  # padding-only shards have no row
+            stream, meta = rows[s]
+            local_real = min(per, nreal - s * per)
+            got = _collect_aligned(stream, meta[:-1], local_real, frame_cap,
+                                   self.transfer_stats)
+            if got is None:  # this shard's rows only, through the ladder
+                lo = s * per
+                got = self._encode_overflow({
+                    "chunk": pending["chunk"][lo : lo + per], "nreal": local_real,
+                    "fns": pending["fns"][lo : lo + per], "rate": pending["rate"],
+                    "device": self._mesh.entries[s][1]})
+            parts.append(got[0])
+            szs.append(got[1])
+        payload = b"".join(parts)
+        sizes = np.concatenate(szs) if szs else np.zeros(0, np.int64)
+        if distributed.process_count() > 1:
+            payload, sizes = distributed.allgather_parts(payload, sizes)
+        return payload, sizes
 
     def _encode_overflow(self, rec: dict):
         """Capacity-ladder fallback for batches that out-size tier 0."""
@@ -278,10 +364,12 @@ class DevicePipeline:
         # exact worst case: the padded words path
         chunk = rec["chunk"]
         _, c, B = chunk.shape
-        hstatic, max_words, _ = self._shape(c, B, rec["rate"], None, chunk.shape[0])
+        hstatic, max_words, _ = compact_shape(self.config, self.bit_depth, c, B, rec["rate"],
+                                              None, chunk.shape[0])
+        device = rec.get("device")
         words, total_bits, crcs = _encode_batch(
-            self._feed(chunk),
-            self._to_device(rec["fns"].astype(np.int64)),
+            self._feed(chunk, device),
+            self._to_device(rec["fns"].astype(np.int64), device),
             config=self.config, depth=self.bit_depth, hstatic=hstatic,
             block_size=B, max_words=max_words,
         )

@@ -2,9 +2,12 @@
 
 The accelerator owns the compute path; this module covers the serial host
 runtime the reference implements natively: MD5 over raw PCM bytes, CRC
-tables, WAV de-interleave, and frame-stream assembly. Falls back to
-hashlib/numpy implementations when the extension isn't built
-(``python native/setup.py build_ext --inplace``).
+tables, WAV de-interleave, and frame-stream assembly. The extension is
+``_zf_native`` where it was built in place (``python native/setup.py
+build_ext --inplace``), else the port's own g++ build of the same source
+(``_host_runtime.py``, built at the first import in a checkout). Falls back
+to hashlib/numpy implementations where neither exists: a machine without
+g++ or ``Python.h``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import hashlib
 import numpy as np
 
 try:
-    import _zf_native as _n
+    from ._host_runtime import module as _n
 
     HAVE_NATIVE = True
 except ImportError:  # pragma: no cover - environment dependent

@@ -160,7 +160,7 @@ def flac_to_ogg(flac, out, serial: int = 0) -> None:
     ``flac`` may be bytes or any sliceable buffer (e.g. an mmap) — the
     transmux touches it in frame-batch windows, so memory stays bounded
     for file inputs."""
-    import _zf_native as _n
+    from ._host_runtime import module as _n
 
     from .decoder import FlacDecodeError, _parse_metadata
 

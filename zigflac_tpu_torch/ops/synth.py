@@ -14,6 +14,9 @@ with all M subframes of a batch independent of each other.
 
 ``synthesize_batch`` routes by device: a CUDA tensor launches the kernel in
 ``csrc/synth.cu`` (or raises), a CPU tensor takes ``synthesize_batch_plain``.
+Its checks end in a wait for the device (the range of ``shift`` and
+``wasted``); the decoder makes that check on the host and calls
+``_synthesize_unchecked``, which does not wait.
 ``KERNEL_LAUNCHES`` and ``PLAIN_CALLS`` count each. The kernel chooses its
 arithmetic per block of ``BLOCK_ROWS`` subframes (how many taps it sums,
 int32 or 64-bit multiplies); while ``STATS`` is a dict every launch records
@@ -115,8 +118,19 @@ def synthesize_batch(
     the tensors' device: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. ``shift``, ``order`` and ``wasted`` are [M] integer
     vectors of any width."""
-    global KERNEL_LAUNCHES, PLAIN_CALLS
     _check(values, qcoeffs, shift, order, wasted)
+    return _synthesize_unchecked(values, qcoeffs, shift, order, wasted)
+
+
+def _synthesize_unchecked(
+    values: torch.Tensor, qcoeffs: torch.Tensor, shift: torch.Tensor,
+    order: torch.Tensor, wasted: torch.Tensor,
+) -> torch.Tensor:
+    """``synthesize_batch`` without its checks, for a caller that has made
+    them itself: the decoder checks ``shift`` and ``wasted`` on the host
+    before their copy to the device, so its calls never wait for the
+    device."""
+    global KERNEL_LAUNCHES, PLAIN_CALLS
     shift, order, wasted = (t.to(torch.int64).contiguous() for t in (shift, order, wasted))
     if values.device.type == "cpu":
         PLAIN_CALLS += 1
