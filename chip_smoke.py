@@ -18,9 +18,25 @@ Phases:
      32-bit white noise at the exact tier (73 KB rows, the kernel's
      global-memory branch). Words must be equal; each is timed with CUDA
      events, and config 1's batch, timed again in turns with the plain
-     version, gives the kernel's times and bound. The synthesis kernel's
-     half of this phase (2-synth) runs after phase 6, once the FLAC streams
-     it parses exist. Kernel == plain, with the arithmetic that each block
+     version, gives the kernel's times and bound. 2-crc: the CRC-16 kernel
+     against its plain version (crc16_words + deposit_crc16) on the same
+     four batches' words, the 73 KB exact-tier rows among them, in both
+     write modes, and against crc.crc16 of three frames' bytes each; config
+     1's batch timed in turns with the plain version, beside its bound.
+     2-analysis: the analysis kernels against their plain versions, every
+     output field equal: zf_analyze_fixed on random planes at depths 8-32
+     and the 33-bit int64 side plane, a wide-mode disqualification of each
+     order, equal, zero and one-sample planes, a first partition of
+     negative size (order 3 at B = 512), blocks of 1, 5, 17, 1972, 4096,
+     4608 and 65535 samples, partition orders 0, 8 and 15 (the pyramid in
+     global memory) with params up to 14 and 30; zf_rice_estimate on
+     partitions about half full and all zero and on orders 0-32; then the
+     planes of one batch each of config 1, config 3 and the 32-bit input as
+     analyze_planes hands them over, and config 3's LPC candidate through
+     the Rice entry; config 1's batch and the LPC batch timed in turns with
+     the plain versions, beside their bounds. The synthesis kernel's half
+     of this phase (2-synth) runs after phase 6, once the FLAC streams it
+     parses exist. Kernel == plain, with the arithmetic that each block
      of 32 subframes chose read back (taps summed, int32 or 64-bit
      multiplies, the tile at which it left int32), on: random subframes
      (orders 0-32, blocks of 1 to 65535 samples, sums that wrap); the
@@ -46,12 +62,18 @@ Phases:
   4. Config 1 at full size: 285 s of 16-bit/44.1 kHz stereo (bench.py's
      recipe, seed 0xBEEF) must give the pinned FLAC bytes. Prints the warm
      wall time, x-realtime, peak device memory, the per-stage CUDA-event
-     times the pipeline records (utils/stages.py) and the device's busy time
-     under torch.profiler.
+     times the pipeline records (utils/stages.py), the device's busy time
+     under torch.profiler, and the host seconds from the first
+     dispatch_batch to the last (dispatch_s: every batch and the tail
+     dispatched through DevicePipeline's public methods before any is
+     collected, as encode_frames_stream does; the frames must equal the
+     pinned stream's).
   5. Config 3 at full size: bench.py's config-3 input (1024 frames, LPC)
      and then the 285 s input with LPC must give their pinned bytes. Prints
      the warm wall time, x-realtime, the stage times, and the LPC pieces of
-     one batch's analysis (lag sums, Levinson, residuals, Rice estimate).
+     one batch's analysis (lag sums, Levinson, residuals, Rice estimate;
+     the fixed analysis and the LPC Rice estimate as plain ops and as
+     kernels).
   6. Depth 32: bench.py's 32-bit input with fixed and with LPC prediction
      must give the pinned bytes; a batch of 32-bit white noise overflows
      tier 0, re-encodes at the exact tier through the kernel's
@@ -112,8 +134,9 @@ Phases:
 Every encode or decode path under test in this process (phases 3-10 and
 12; not the runs it is compared with, nor the CLI subprocesses) runs with the
 kernels' counts set to 0 just before it and read just after: it must have
-launched its kernel (the deposit for an encode, the synthesis for a decode)
-and never called a plain version. Any failure raises, so the exit code is
+launched its kernels (for an encode the analysis, deposit and CRC-16
+kernels, and the Rice kernel with LPC; for a decode the synthesis) and
+never called a plain version. Any failure raises, so the exit code is
 not 0. Phases 8 to 11 work in a temporary directory, removed at the end.
 The last line is one JSON object naming the card; the line before it lists
 each kernel's launches, error against its plain version, times and bound.
@@ -127,6 +150,7 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -216,6 +240,18 @@ SYNTH_INT32_OPS_PER_MAC = 4
 # 32-bit add.
 SYNTH_CHAIN_CYCLES_SHIFT0 = 5
 SYNTH_CHAIN_CYCLES_PER_STEP = 15
+# INT32 operations the fixed analysis needs a sample of a plane: five
+# differences in 64-bit arithmetic, their absolute values, sums and maxima,
+# the residual's zigzag and its partition sum (two to four INT32
+# operations for each 64-bit one)
+ANALYSIS_INT32_OPS_PER_SAMPLE = 40
+# the Rice estimate alone: the zigzag and its partition sum
+RICE_INT32_OPS_PER_SAMPLE = 5
+# CRC-16 by table: a load, a shift, two xors and a mask a byte
+CRC_INT32_OPS_PER_BYTE = 4
+# per plane, the scalar outputs (order, bits, method, part_order int64; ok,
+# all_eq bool) and the 256 int64 params
+ANALYSIS_OUT_BYTES_PER_PLANE = 4 * 8 + 2 + 256 * 8
 
 
 def deposit_bound(n_frames: int, n_sym: int, max_words: int):
@@ -252,6 +288,38 @@ def synth_bound(m: int, b: int, order_sum: int, max_order: int, shift0: bool):
     largest = max(parts, key=parts.get)
     parts["largest"] = largest
     return nbytes, parts[largest], "bytes" if largest == "bytes_ms" else "operations", parts
+
+
+def _bound(nbytes: int, ops: float):
+    """(ms, bound_by, ops_ms): the larger of the bytes over the HBM rate and
+    the INT32 operations over the INT32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", t_ops * 1e3
+
+
+def analysis_bound(p: int, b: int, in_bytes_per_sample: int, fixed: bool):
+    """(bytes, ms, bound_by, ops_ms) of one analysis launch over p planes of
+    b samples: each input read once (the planes, or the residuals and an
+    int64 order a plane), each output written once (the int32 residuals
+    for the fixed entry; ANALYSIS_OUT_BYTES_PER_PLANE, less order, ok and
+    all_eq for the Rice entry); the operations at
+    ANALYSIS_INT32_OPS_PER_SAMPLE or RICE_INT32_OPS_PER_SAMPLE."""
+    if fixed:
+        nbytes = p * b * (in_bytes_per_sample + 4) + p * ANALYSIS_OUT_BYTES_PER_PLANE
+        ops = ANALYSIS_INT32_OPS_PER_SAMPLE * p * b
+    else:
+        nbytes = p * b * in_bytes_per_sample + p * 8 + p * (ANALYSIS_OUT_BYTES_PER_PLANE - 10)
+        ops = RICE_INT32_OPS_PER_SAMPLE * p * b
+    return (nbytes, *_bound(nbytes, ops))
+
+
+def crc_bound(byte_len: np.ndarray, w: int):
+    """(bytes, ms, bound_by, ops_ms) of one CRC launch: each frame's bytes
+    inside its row and its byte_len read, its CRC (int64) and two CRC bytes
+    written; CRC_INT32_OPS_PER_BYTE operations a byte read."""
+    frame_bytes = int(np.minimum(byte_len, 4 * w).sum())
+    nbytes = frame_bytes + byte_len.size * (8 + 8 + 2)
+    return (nbytes, *_bound(nbytes, CRC_INT32_OPS_PER_BYTE * frame_bytes))
 
 
 def _sha(b: bytes) -> str:
@@ -540,6 +608,154 @@ def _fixed_subframes(rng, m, b, max_order):
         q[i, :order[i]] = binomial[order[i]]
         values[i, order[i]:] = np.diff(values[i], n=order[i])
     return [values, q, np.zeros(m, np.int64), order, np.zeros(m, np.int64)]
+
+
+def _analysis_planes(rng, p, b, depth):
+    """Planes of every kind the encoder meets, p rows of b samples: noise, a
+    tone with noise, a constant, full-scale alternation, quiet +-1. Depth 33
+    gives int64 planes (the side plane of a 32-bit stream)."""
+    lim = 1 << (depth - 1)
+    t = np.arange(b)
+    tone = 0.4 * lim * np.sin(2 * np.pi * 440 * t / RATE)
+    rows = [rng.integers(-lim, lim, b), np.round(tone + rng.normal(0, lim >> 8, b)),
+            np.full(b, lim // 3), np.where(t % 2 == 0, lim - 1, -lim), rng.integers(-1, 2, b)]
+    x = np.stack([rows[i % len(rows)] for i in range(p)])
+    return np.clip(x, -lim, lim - 1).astype(np.int64 if depth > 32 else np.int32)
+
+
+def _quiet_residuals(rng, rows, b, order):
+    """Residual rows of sparse +-1 (zigzag sums about half a partition's
+    size, where the reference's u64 cost wraps), every third row zero, the
+    warmup slots zero."""
+    res = np.where(rng.random((rows, b)) < rng.random((rows, 1)),
+                   rng.choice([-1, 1], (rows, b)), 0).astype(np.int32)
+    res[::3] = 0
+    res[np.arange(b)[None, :] < np.asarray(order)[:, None]] = 0
+    return res
+
+
+def phase2_analysis(env, batches, lpc_batch):
+    """The analysis kernels against their plain versions on the card, every
+    output field equal: zf_analyze_fixed on random planes at depths 8-32 and
+    the int64 side plane, a wide-mode disqualification of each order, equal,
+    zero and one-sample planes, a first partition of negative size, blocks
+    of 1 to 65535 samples, partition orders 0, 8 and 15 and params up to 14
+    and 30; zf_rice_estimate on partitions about half full and all zero and
+    on orders 0-32; then the real planes of one batch each of ``batches``
+    (name -> [(planes, wide, max_param)], the calls analyze_planes makes)
+    and the LPC candidate's residuals of ``lpc_batch`` (residuals, orders).
+    Config 1's batch and the LPC batch are timed in turns with the plain
+    versions. Returns the two kernels' entries for the last lines."""
+    torch, dev, analyze = env.torch, env.dev, env.analyze
+    rng = np.random.default_rng(0xA7A1)
+    max_err = {"fixed": 0, "rice": 0}
+
+    def diff(got, want):
+        """0 if every field is equal, else the largest |difference| (>= 1)."""
+        err = 0
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                err = max(err, 1, int((g.double() - w.double()).abs().max()))
+        return err
+
+    def fixed(planes, wide, mro=8, max_param=14):
+        x = planes if torch.is_tensor(planes) else torch.from_numpy(planes).to(dev)
+        got = analyze.analyze_fixed(x, wide, mro, max_param)
+        err = diff(got, analyze.analyze_fixed_plain(x, wide, mro, max_param))
+        torch.cuda.synchronize()
+        max_err["fixed"] = max(max_err["fixed"], err)
+        if err:
+            raise AssertionError(f"analysis kernel != plain (max |diff| {err}) on "
+                                 f"{tuple(x.shape)} {x.dtype}, wide {wide}, {mro}, {max_param}")
+        return got
+
+    def rice(res, order, mro=8, max_param=14):
+        r = res if torch.is_tensor(res) else torch.from_numpy(res).to(dev)
+        o = order if torch.is_tensor(order) else torch.from_numpy(order).to(dev)
+        got = analyze.rice_estimate_planes(r, o, mro, max_param)
+        err = diff(got, analyze.rice_estimate(r, o, r.shape[-1], mro, max_param))
+        torch.cuda.synchronize()
+        max_err["rice"] = max(max_err["rice"], err)
+        if err:
+            raise AssertionError(f"Rice kernel != plain (max |diff| {err}) on {tuple(r.shape)}")
+        return got
+
+    analyze.reset_counts()
+    for depth in (8, 16, 24, 28, 32, 33):
+        fixed(_analysis_planes(rng, 20, BLOCK, depth), depth >= 28, 8, 30 if depth > 16 else 14)
+    ok = []
+    for k in range(5):  # |d_k| just past 2^31 - 1 from order k on
+        a = -(-(1 << 31) // (1 << k))
+        alt = np.where(np.arange(300) % 2 == 0, a, -a).astype(np.int64)
+        ok.append(fixed(np.stack([alt, alt + 1, np.full(300, 1 << 32)]), True, 8, 30)
+                  .ok.tolist())
+    if ok != [[k > 0, k > 0, True] for k in range(5)]:
+        raise AssertionError(f"wide-mode disqualification: usable {ok}")
+    eq = fixed(np.stack([np.zeros(64), np.full(64, -7), np.r_[np.full(63, 5), 6]])
+               .astype(np.int32), False).all_eq.tolist()
+    if eq != [True, True, False]:
+        raise AssertionError(f"all_eq {eq}")
+    fixed(rng.integers(-999, 999, (9, 1)).astype(np.int32), False)
+    i = np.arange(512, dtype=np.int64)
+    cube = np.stack([i**3 // 60, i**3 // 60 + (i % 11 == 0)]).astype(np.int32)
+    if fixed(cube, False).order.tolist() != [3, 3]:  # order 3, po 8: first size 2 - 3
+        raise AssertionError("the negative first partition case lost its order 3")
+    for b in (1, 5, 17, 1972, 4096, 4608, 65535):
+        fixed(_analysis_planes(rng, 3 if b == 65535 else 10, b, 16), False)
+    for mro, max_param in ((0, 14), (8, 30), (15, 14), (15, 30)):  # 15: pyramid in global memory
+        fixed(_analysis_planes(rng, 10, BLOCK, 24), False, mro, max_param)
+    for b, order in ((4096, 2), (272, 1), (48, 1), (4608, 3)):
+        orders = np.full(30, order, np.int64)
+        rice(_quiet_residuals(rng, 30, b, orders), orders, 8, 30)
+    orders = np.arange(33).repeat(2)
+    for b in (4096, 256):  # orders 17-31 at po 8 of 256: partitions shorter than the order
+        res = rng.integers(-3000, 3000, (orders.size, b)).astype(np.int32)
+        res[np.arange(b)[None, :] < orders[:, None]] = 0
+        res[1::2] >>= 10
+        for max_param in (14, 30):
+            rice(res, orders, 8, max_param)
+    rice(_quiet_residuals(rng, 66, 4096, orders), orders, 15, 30)
+
+    out = {}
+    for name, calls in batches.items():
+        out[name] = [dict(planes=list(x.shape), dtype=str(x.dtype), wide=wide,
+                          part_orders=np.bincount(fixed(x, wide, 8, mp).part_order.cpu()
+                                                  .flatten().numpy(), minlength=9).tolist())
+                     for x, wide, mp in calls]
+    res, order = lpc_batch
+    got = rice(res, order)
+    out["config3_lpc_rice"] = dict(residuals=list(res.shape), orders=np.bincount(
+        order.cpu().flatten().numpy()).tolist(), part_orders=np.bincount(
+        got[2].cpu().flatten().numpy(), minlength=9).tolist())
+
+    # config 1's batch and the LPC candidate's, in turns with the plain versions
+    x1 = batches["config1"][0][0]
+    run = lambda: analyze.analyze_fixed(x1, False, 8, 14)
+    run_plain = lambda: analyze.analyze_fixed_plain(x1, False, 8, 14)
+    f_plain, f_kernel = [cuda_ms(torch, run_plain, reps=5)], [cuda_ms(torch, run)]
+    f_kernel.append(cuda_ms(torch, run))
+    f_plain.append(cuda_ms(torch, run_plain, reps=5))
+    r_run = lambda: analyze.rice_estimate_planes(res, order, 8, 14)
+    r_plain_run = lambda: analyze.rice_estimate(res, order, BLOCK, 8, 14)
+    r_plain, r_kernel = [cuda_ms(torch, r_plain_run, reps=5)], [cuda_ms(torch, r_run)]
+    r_kernel.append(cuda_ms(torch, r_run))
+    r_plain.append(cuda_ms(torch, r_plain_run, reps=5))
+    p1 = x1.numel() // BLOCK
+    fb = analysis_bound(p1, BLOCK, x1.element_size(), True)
+    rb = analysis_bound(order.numel(), BLOCK, 4, False)
+    _log("2-analysis", max_abs_err=max_err, batches=out, config1_kernel_ms=f_kernel,
+         config1_plain_ms=f_plain, config1_bound_bytes=fb[0], config1_bound_ms=fb[1],
+         config1_bound_by=fb[2], config1_bound_ops_ms=fb[3], lpc_rice_kernel_ms=r_kernel,
+         lpc_rice_plain_ms=r_plain, lpc_rice_bound_bytes=rb[0], lpc_rice_bound_ms=rb[1],
+         lpc_rice_bound_by=rb[2], lpc_rice_bound_ops_ms=rb[3],
+         launches_here=[analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES])
+    entry = lambda name, line, err, k, p, b: {
+        "name": name, "route": "cuda", "source": "zigflac_tpu_torch/csrc/analyze.cu",
+        "replaces": f"zigflac_tpu/ops/analyze.py:{line}", "max_abs_err": err,
+        "ms": sum(k) / len(k), "plain_ms": sum(p) / len(p), "bound_ms": b[1],
+        "bound_by": b[2], "library_ms": None}
+    return (entry("analyze_fixed", 118, max_err["fixed"], f_kernel, f_plain, fb),
+            entry("rice_estimate", 197, max_err["rice"], r_kernel, r_plain, rb))
 
 
 # positions at which a boundary case's running sum leaves int32, by block
@@ -952,11 +1168,11 @@ def phase12_multi(env, album, wav1, wav32, cfg_lpc):
         return enc.encode_stream(r.planar_samples(), r.flac_streaminfo(cfg.block_size),
                                  raw_pcm_bytes=bytes(r.raw_pcm_bytes()))
 
-    def timed(path, fn):
+    def timed(path, fn, lpc=False):
         fn()  # warm-up
         env.sync()
         t0 = time.perf_counter()
-        out, k, _ = env.counted(path, fn)
+        out, k, _ = env.counted(path, fn, lpc=lpc)
         return out, k, time.perf_counter() - t0
 
     calls = []
@@ -998,7 +1214,8 @@ def phase12_multi(env, album, wav1, wav32, cfg_lpc):
                              f"{[[per, per]]}")
     pl.DevicePipeline._encode_overflow = spy
     try:
-        flac, k32, wall32 = timed("12a 32-bit LPC, 2 shards", lambda: sharded(wav32, cfg_lpc))
+        flac, k32, wall32 = timed("12a 32-bit LPC, 2 shards", lambda: sharded(wav32, cfg_lpc),
+                                  lpc=True)
     finally:
         pl.DevicePipeline._encode_overflow = real_overflow
     lpc32_calls, calls[:] = [c for c in calls if c[0] > 1], []
@@ -1006,7 +1223,8 @@ def phase12_multi(env, album, wav1, wav32, cfg_lpc):
     if lpc32_calls[-2:] != [[512, 512], [512, 512]]:  # the timed run's: each shard overflows
         raise AssertionError(f"12a 32-bit LPC: ladder re-encodes {lpc32_calls}")
     _, k32s, wall32s = timed("12a 32-bit LPC, single device",
-                             lambda: zt.encode_wav_bytes(wav32, config=cfg_lpc, device=dev))
+                             lambda: zt.encode_wav_bytes(wav32, config=cfg_lpc, device=dev),
+                             lpc=True)
     _log("12a", shards=[str(d) for d in mesh.devices], config1_wall_s=wall,
          config1_single_wall_s=wall1, config1_launches=k, config1_single_launches=k1,
          config1_sha256=CONFIG1_FLAC_SHA, ragged_frames=nf, ragged_launches=kr,
@@ -1204,7 +1422,8 @@ def main() -> int:
     from zigflac_tpu_torch import native
     from zigflac_tpu_torch.native import md5
     from zigflac_tpu_torch import decoder
-    from zigflac_tpu_torch.ops import _build, analyze, bitpack, deposit, lpc, synth
+    from zigflac_tpu_torch.crc import crc16 as crc16_bytes
+    from zigflac_tpu_torch.ops import _build, analyze, bitpack, crc16, deposit, lpc, synth
     from zigflac_tpu_torch.utils import stages
     from zigflac_tpu_torch.wav import WavReader, write_wav
 
@@ -1299,12 +1518,45 @@ def main() -> int:
             analyze.lpc_order_of(cfg), cfg.lpc_precision)
         return dep_cum.to(torch.int32), dep_val, dep_nbv.to(torch.int32), max_words, plan
 
-    streams = {}
+    crc_err = 0
+
+    def compare_crc(words, byte_len):
+        """CRC kernel == plain (it ORs into ``words`` in place: give it a
+        copy), and == crc.crc16 of the bytes of a few frames."""
+        nonlocal crc_err
+        want = crc16.crc16_frames_plain(words, byte_len)
+        got_ro, _ = crc16.crc16_frames(words, byte_len, write=False)
+        got = crc16.crc16_frames(words.clone(), byte_len)
+        torch.cuda.synchronize()
+        for g, w in ((got_ro, want[0]), *zip(got, want)):
+            if not torch.equal(g, w):
+                crc_err = max(crc_err, 1, int((g.double() - w.double()).abs().max()))
+        if crc_err:
+            raise AssertionError(f"CRC kernel != plain (max |diff| {crc_err})")
+        rows = words.cpu().numpy().astype(">i4")
+        for f in (0, rows.shape[0] // 2, rows.shape[0] - 1):
+            n = int(byte_len[f])
+            if n <= 4 * rows.shape[1] and crc16_bytes(rows[f].tobytes()[:n]) != int(got[0][f]):
+                raise AssertionError(f"CRC kernel: frame {f} differs from crc.crc16")
+
+    streams, crc_streams = {}, {}
     for name, wav, cfg, tier in (("config1", wav1, cfg1, 0), ("config3", wav3, cfg_lpc, 0),
                                  ("depth32_lpc", wav32, cfg_lpc, 0),
                                  ("noise32_exact", wav_noise, cfg1, None)):
         dc, dv, dn, mw, plan = batch_stream(wav, cfg, tier)
         compare(dc, dv, dn, mw)
+        words = deposit.deposit_words(dc, dv, dn, mw)
+        byte_len = (dc[:, -1].to(torch.int64) + 7) >> 3
+        compare_crc(words, byte_len)
+        scratch = words.clone()
+        crc_streams[name] = dict(
+            rows=list(words.shape), frame_bytes_max=int(byte_len.max()),
+            bound_ms=crc_bound(byte_len.cpu().numpy(), mw)[1],
+            kernel_ms=cuda_ms(torch, lambda: crc16.crc16_frames(scratch, byte_len)),
+            plain_ms=cuda_ms(torch, lambda: crc16.crc16_frames_plain(words, byte_len), reps=5))
+        if name == "config1":
+            crc_timed = (words, byte_len, mw)
+        del scratch
         streams[name] = dict(
             symbols=list(dc.shape), max_words=mw, max_value_bits=int(dn.max()),
             lpc_subframes=int((plan.kind == 3).sum()),
@@ -1335,6 +1587,48 @@ def main() -> int:
          bound_ops_ms=bound_ops_ms)
     del timed, dc32, dep_val, nbv32
 
+    # -- phase 2-crc: config 1's batch timed in turns with the plain version
+    words, byte_len, mw = crc_timed
+    scratch = words.clone()
+    run_kernel = lambda: crc16.crc16_frames(scratch, byte_len)
+    run_plain = lambda: crc16.crc16_frames_plain(words, byte_len)
+    c_plain, c_kernel = [cuda_ms(torch, run_plain, reps=5)], [cuda_ms(torch, run_kernel)]
+    c_kernel.append(cuda_ms(torch, run_kernel))
+    c_plain.append(cuda_ms(torch, run_plain, reps=5))
+    crc_b = crc_bound(byte_len.cpu().numpy(), mw)
+    _log("2-crc", streams=crc_streams, max_abs_err=crc_err, kernel_ms=c_kernel,
+         plain_ms=c_plain, bound_bytes=crc_b[0], bound_ms=crc_b[1], bound_by=crc_b[2],
+         bound_ops_ms=crc_b[3])
+    crc_entry = {
+        "name": "crc16_frames", "route": "cuda", "source": "zigflac_tpu_torch/csrc/crc16.cu",
+        "replaces": "zigflac_tpu/ops/crc16.py:54", "max_abs_err": crc_err,
+        "ms": sum(c_kernel) / len(c_kernel), "plain_ms": sum(c_plain) / len(c_plain),
+        "bound_ms": crc_b[1], "bound_by": crc_b[2], "library_ms": None}
+    del crc_timed, words, byte_len, scratch
+
+    # -- phase 2-analysis: the planes analyze_planes hands the kernel ---------
+    def batch_planes(wav, depth):
+        """One batch's (planes, wide, max_param) as plan_frames_stereo makes
+        them: L/R/M/S int32, or at depth 32 L/R/M int32 and the side int64."""
+        s = WavReader.from_bytes(wav).planar_samples()
+        n = min(1024, s.shape[1] // BLOCK)
+        fr = torch.from_numpy(s[:, : n * BLOCK].reshape(2, n, BLOCK).copy()).to(dev)
+        left, right = fr[0].to(torch.int64), fr[1].to(torch.int64)
+        mid, side = (left + right) >> 1, left - right
+        max_param = 30 if depth > 16 else 14
+        if depth == 32:
+            return [(torch.stack([left, right, mid]).to(torch.int32), True, max_param),
+                    (side, True, max_param)]
+        return [(torch.stack([left, right, mid, side]).to(torch.int32), False, max_param)]
+
+    an_batches = {"config1": batch_planes(wav1, 16), "config3": batch_planes(wav3, 16),
+                  "depth32": batch_planes(wav32, 32)}
+    l_order, l_res, *_ = lpc.analyze_lpc(an_batches["config3"][0][0], cfg_lpc.lpc_order,
+                                         cfg_lpc.lpc_precision)
+    fixed_entry, rice_entry = phase2_analysis(
+        SimpleNamespace(torch=torch, dev=dev, analyze=analyze), an_batches, (l_res, l_order))
+    del an_batches, l_order, l_res
+
     # the port's first-min / last-min tie rules on the card
     ties = torch.tensor([[3, 1, 2], [1, 1, 5], [1, 0, 2]], device=dev)
     if (analyze.argmin_first(ties).tolist(), analyze.argmin_last(ties).tolist()) != (
@@ -1344,27 +1638,34 @@ def main() -> int:
     # the CPU port's bytes for phase 6's noise batch, made before any counted path
     noise_cpu = zt.encode_wav_bytes(wav_noise, device="cpu")
 
-    launches = {"total": 0, "global_rows": 0}
+    launches = {"total": 0, "global_rows": 0, "analysis": 0, "rice": 0, "crc": 0}
 
-    def counted(path, fn):
+    def counted(path, fn, lpc=False):
         """Run one encode path with the counts at 0 before it; it must
-        launch the deposit kernel and never call a plain version."""
-        deposit.reset_counts()
-        synth.reset_counts()
+        launch the analysis, deposit and CRC kernels (and, with ``lpc``, the
+        Rice kernel) and never call a plain version."""
+        for m in (deposit, synth, analyze, crc16):
+            m.reset_counts()
         out = fn()
         torch.cuda.synchronize()
         k, g, p = deposit.KERNEL_LAUNCHES, deposit.GLOBAL_ROW_LAUNCHES, deposit.PLAIN_CALLS
-        if k == 0 or p != 0 or synth.PLAIN_CALLS != 0:
-            raise AssertionError(f"{path}: {k} kernel launches, {p} plain calls")
+        ka, kr, kc = analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES
+        plain = p + synth.PLAIN_CALLS + analyze.PLAIN_CALLS + crc16.PLAIN_CALLS
+        if k == 0 or ka == 0 or kc == 0 or (lpc and kr == 0) or plain != 0:
+            raise AssertionError(f"{path}: {k} deposit, {ka} analysis, {kr} Rice and {kc} CRC "
+                                 f"launches, {plain} plain calls")
         launches["total"] += k
         launches["global_rows"] += g
+        launches["analysis"] += ka
+        launches["rice"] += kr
+        launches["crc"] += kc
         return out, k, g
 
     def counted_decode(path, fn):
         """Run one decode path with the counts at 0 before it; it must
         launch the synthesis kernel and never call a plain version."""
-        deposit.reset_counts()
-        synth.reset_counts()
+        for m in (deposit, synth, analyze, crc16):
+            m.reset_counts()
         out = fn()
         torch.cuda.synchronize()
         k, p = synth.KERNEL_LAUNCHES, synth.PLAIN_CALLS + deposit.PLAIN_CALLS
@@ -1410,7 +1711,8 @@ def main() -> int:
             cfg = replace(cfg, block_size=case["block"])
         if case.get("lpc"):
             cfg = replace(cfg, prediction="lpc", lpc_order=case.get("order", 8))
-        flac, _, _ = counted(case["name"], lambda: zt.encode_wav_bytes(wav, config=cfg, device=dev))
+        flac, _, _ = counted(case["name"], lambda: zt.encode_wav_bytes(wav, config=cfg, device=dev),
+                             lpc=bool(case.get("lpc")))
         if _sha(flac) != ent["flac_sha256"]:
             raise AssertionError(f"{case['name']}: FLAC differs from the pinned stream")
     _log("3", corpus_cases=len(CORPUS), identical=True)
@@ -1468,15 +1770,42 @@ def main() -> int:
     busy_s = busy_us / 1e6
     dev_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     top = sorted(dev_ops, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    del prof
+
+    # the host's issue time: every batch dispatched through DevicePipeline's
+    # public methods before any is collected, as encode_frames_stream does
+    s1 = r.planar_samples()
+    nfull = s1.shape[1] // BLOCK
+    frames1 = s1[:, : nfull * BLOCK].reshape(2, nfull, BLOCK).transpose(1, 0, 2)
+    info1 = zt.StreamInfo(RATE, 2, 16, s1.shape[1], BLOCK, BLOCK)
+    pipe1 = pl.DevicePipeline(cfg1, 16, dev)
+
+    def dispatch_collect():
+        t0 = time.perf_counter()
+        pending = [pipe1.dispatch_batch(frames1[i : i + 1024],
+                                        np.arange(i, min(i + 1024, nfull), dtype=np.int64), info1)
+                   for i in range(0, nfull, 1024)]
+        pending.append(pipe1.dispatch_tail(s1[:, nfull * BLOCK :], nfull, info1))
+        t1 = time.perf_counter()
+        parts = [pipe1.collect_batch(p, info1)[0] for p in pending]
+        return b"".join(parts), t1 - t0, time.perf_counter() - t1
+
+    dispatch_collect()  # warm-up
+    torch.cuda.synchronize()
+    (stream1, dispatch_s, collect_s), _, _ = counted("4 dispatch", dispatch_collect)
+    if not flac1.endswith(stream1):
+        raise AssertionError("4 dispatch: the frames differ from config 1's pinned stream")
     _log("4-breakdown", wav_parse_s=t1 - t0, md5_s=t2 - t1, profiled_wall_s=prof_wall,
          device_events=len(spans), device_busy_s=busy_s,
          device_idle_share=1 - busy_s / prof_wall,
-         top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top])
-    del prof
+         top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
+         dispatches=len(range(0, nfull, 1024)) + 1, dispatch_s=dispatch_s,
+         collect_after_dispatch_s=collect_s)
+    del s1, frames1, stream1
 
     # -- phase 5: config 3 (LPC) at full size ---------------------------------
     (flac, wall, per_batch), k, _ = counted(
-        "config 3", lambda: timed_encode(wav3, cfg_lpc))
+        "config 3", lambda: timed_encode(wav3, cfg_lpc), lpc=True)
     check("config 3", flac, CONFIG3_FLAC_BYTES, CONFIG3_FLAC_SHA)
     flac3 = flac
     seconds3 = CONFIG3_SAMPLES / RATE
@@ -1508,11 +1837,15 @@ def main() -> int:
             planes, sel[1], sel[2], sel[0], cfg_lpc.lpc_order), reps=5),
         "lpc_rice": cuda_ms(torch, lambda: analyze.rice_estimate(
             res, sel[0], BLOCK, 8, 14), reps=5),
+        "fixed_kernel": cuda_ms(torch, lambda: analyze.analyze_fixed(planes, False, 8, 14)),
+        "lpc_rice_kernel": cuda_ms(torch, lambda: analyze.rice_estimate_planes(
+            res, sel[0], 8, 14)),
     }
     _log("5-lpc-pieces", planes=list(planes.shape), ms=pieces)
     del planes, lags, sel, res
 
-    (flac, wall, _), k, _ = counted("config 1 with LPC", lambda: timed_encode(wav1, cfg_lpc))
+    (flac, wall, _), k, _ = counted("config 1 with LPC", lambda: timed_encode(wav1, cfg_lpc),
+                                    lpc=True)
     check("config 1 with LPC", flac, CONFIG1_LPC_FLAC_BYTES, CONFIG1_LPC_FLAC_SHA)
     _log("5-285s", flac_bytes=len(flac), ratio=len(flac) / len(wav1), wall_s=wall,
          x_realtime=CONFIG1_SECONDS / wall, kernel_launches=k)
@@ -1521,7 +1854,8 @@ def main() -> int:
     seconds32 = DEPTH32_SAMPLES / RATE
     for pred, (nbytes, sha) in DEPTH32_FLAC.items():
         (flac, wall, per_batch), k, g = counted(
-            f"32-bit {pred}", lambda: timed_encode(wav32, replace(cfg1, prediction=pred)))
+            f"32-bit {pred}", lambda: timed_encode(wav32, replace(cfg1, prediction=pred)),
+            lpc=pred == "lpc")
         check(f"32-bit {pred}", flac, nbytes, sha)
         flac32 = flac  # the last one, LPC, goes on to the decode phases
         _log("6", prediction=pred, flac_bytes=len(flac), ratio=len(flac) / len(wav32),
@@ -1535,12 +1869,11 @@ def main() -> int:
     _log("6-noise", frames=NOISE32_FRAMES, flac_bytes=len(flac), equals_cpu=True,
          kernel_launches=k, global_row_launches=g)
     flac_anti, k, _ = counted("32-bit antiphase", lambda: zt.encode_wav_bytes(
-        wav_anti, config=cfg_lpc, device=dev))
+        wav_anti, config=cfg_lpc, device=dev), lpc=True)
     _log("6-antiphase", frames=ANTIPHASE32_FRAMES, flac_bytes=len(flac_anti), kernel_launches=k)
 
     # -- phase 2, the synthesis kernel's half, and phases 7-11 ----------------
     import tempfile
-    from types import SimpleNamespace
 
     env = SimpleNamespace(zt=zt, dev=dev, torch=torch, counted=counted,
                           counted_decode=counted_decode, check=check,
@@ -1563,7 +1896,10 @@ def main() -> int:
         phase12_multi(env, album, wav1, wav32, cfg_lpc)
     _log("end", wall_s=time.perf_counter() - t_start)
 
-    print(json.dumps({"kernels": [synth_entry, {
+    fixed_entry["launches"] = launches["analysis"]
+    rice_entry["launches"] = launches["rice"]
+    crc_entry["launches"] = launches["crc"]
+    print(json.dumps({"kernels": [synth_entry, fixed_entry, rice_entry, crc_entry, {
         "name": "deposit_words",
         "route": "cuda",
         "source": "zigflac_tpu_torch/csrc/deposit.cu",

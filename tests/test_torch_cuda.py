@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the deposit and synthesis kernels against their
-plain versions, and whole encodes and decodes on the card against the CPU
-path. Every test skips where
+"""The port on a CUDA card: the deposit, synthesis, analysis and CRC-16
+kernels against their plain versions, and whole encodes and decodes on the
+card against the CPU path. Every test skips where
 torch.cuda.is_available() is false. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
 
@@ -481,3 +481,146 @@ def test_sharded_on_one_card_equals_single(rng, ndev, fields):
     want = pipeline.DevicePipeline(cfg, 16, "cpu", batch_size=bs).encode_frames_stream(
         frames, 0, info)
     assert got[0] == want[0] and got[1].tolist() == want[1].tolist()
+
+
+# -- the analysis and CRC-16 kernels ---------------------------------------------------
+
+
+def _analysis_planes(rng, p, b, depth):
+    """Planes of every kind the encoder meets: noise, a tone with noise,
+    constant, alternating full scale, quiet +-1."""
+    lim = 1 << (depth - 1)
+    t = np.arange(b)
+    tone = 0.4 * lim * np.sin(2 * np.pi * 440 * t / 44100)
+    rows = [rng.integers(-lim, lim, b), np.round(tone + rng.normal(0, lim >> 8, b)),
+            np.full(b, lim // 3), np.where(t % 2 == 0, lim - 1, -lim), rng.integers(-1, 2, b)]
+    x = np.stack([rows[i % len(rows)] for i in range(p)])
+    return np.clip(x, -lim, lim - 1).astype(np.int64 if depth > 32 else np.int32)
+
+
+def _assert_fixed_equal(planes, wide, max_rice_order, max_param):
+    from zigflac_tpu_torch.ops import analyze
+
+    x = torch.from_numpy(planes).cuda()
+    analyze.reset_counts()
+    got = analyze.analyze_fixed(x, wide, max_rice_order, max_param)
+    assert (analyze.KERNEL_LAUNCHES, analyze.PLAIN_CALLS) == (1, 0)
+    want = analyze.analyze_fixed_plain(x, wide, max_rice_order, max_param)
+    for name in analyze.FixedAnalysis._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    return got
+
+
+@pytest.mark.parametrize("depth,b,max_rice_order,max_param", [
+    (8, 4096, 8, 14), (16, 4096, 8, 14), (24, 4096, 8, 30), (28, 4096, 8, 30),
+    (32, 4096, 8, 30), (33, 4096, 8, 30), (16, 1, 8, 14), (16, 5, 8, 14), (16, 17, 8, 14),
+    (16, 1972, 8, 14), (16, 4608, 8, 14), (16, 65535, 8, 14), (16, 512, 0, 14),
+    (16, 4096, 15, 30), (24, 32768, 15, 30)])
+def test_analysis_kernel_matches_plain(rng, depth, b, max_rice_order, max_param):
+    """zf_analyze_fixed == the plain order search, residual and Rice
+    estimate, every field; depth 33 is the int64 side plane, from 28 on the
+    search is wide; max_rice_order 15 at B = 4096 and 32768 keeps the
+    pyramid in global memory."""
+    p = 2 if b >= 32768 else 11
+    _assert_fixed_equal(_analysis_planes(rng, p, b, depth), depth >= 28, max_rice_order,
+                        max_param)
+
+
+@pytest.mark.parametrize("k", range(5))
+def test_analysis_kernel_wide_disqualification(rng, k):
+    """Alternating +-A with 2^k A just past 2^31 - 1: orders k..4 are out;
+    at k = 0 no order is usable."""
+    a = -(-(1 << 31) // (1 << k))
+    alt = np.where(np.arange(300) % 2 == 0, a, -a).astype(np.int64)
+    got = _assert_fixed_equal(np.stack([alt, alt + 1, np.full(300, 1 << 32)]), True, 8, 30)
+    assert got.ok.tolist() == [k > 0, k > 0, True]
+
+
+def test_rice_kernel_matches_plain(rng):
+    """zf_rice_estimate == rice_estimate for orders 0-32 (partitions shorter
+    than the order at B = 256), quiet rows and full-range residuals."""
+    from zigflac_tpu_torch.ops import analyze
+
+    for b, max_rice_order in ((4096, 8), (256, 8), (4608, 6), (4096, 15)):
+        order = np.arange(33).repeat(2)
+        res = rng.integers(-3000, 3000, (order.size, b)).astype(np.int32)
+        res[np.arange(b)[None, :] < order[:, None]] = 0
+        res[1::4] >>= 10
+        res[3::4] = rng.integers(-(1 << 31), 1 << 31, (res[3::4].shape)).astype(np.int32)
+        r, o = torch.from_numpy(res).cuda(), torch.from_numpy(order).cuda()
+        for max_param in (14, 30):
+            analyze.reset_counts()
+            got = analyze.rice_estimate_planes(r, o, max_rice_order, max_param)
+            assert (analyze.RICE_KERNEL_LAUNCHES, analyze.PLAIN_CALLS) == (1, 0)
+            want = analyze.rice_estimate(r, o, b, max_rice_order, max_param)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (b, max_param)
+
+
+def test_crc_kernel_matches_plain(rng):
+    """zf_crc16_frames == crc16_words + deposit_crc16: random rows of every
+    length about the row's end, frames over the row, and both write modes."""
+    from zigflac_tpu_torch.ops import crc16
+
+    for w in (1, 37, 5504, 18432):
+        lens = np.array(sorted({0, 1, 5, 1023, 1024, 4 * w - 2, 4 * w - 1, 4 * w, 4 * w + 9}))
+        be = rng.integers(0, 256, (lens.size, 4 * w), dtype=np.uint8)
+        be[np.arange(4 * w)[None, :] >= lens[:, None]] = 0
+        words = torch.from_numpy(be.view(">i4").astype(np.int32)).cuda()
+        byte_len = torch.from_numpy(lens).cuda()
+        want = crc16.crc16_frames_plain(words, byte_len)
+        crc16.reset_counts()
+        crcs_ro, same = crc16.crc16_frames(words, byte_len, write=False)
+        assert same is words and torch.equal(crcs_ro, want[0])
+        crcs, out = crc16.crc16_frames(words, byte_len)
+        assert out is words  # in place
+        assert (crc16.KERNEL_LAUNCHES, crc16.PLAIN_CALLS) == (2, 0)
+        assert torch.equal(crcs, want[0]) and torch.equal(out, want[1])
+
+
+def test_kernels_refuse_what_they_do_not_take(rng):
+    from zigflac_tpu_torch.ops import analyze, crc16
+
+    x = torch.zeros((64, 3), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        analyze.analyze_fixed(x.t(), False, 8, 14)
+    with pytest.raises(ValueError, match="is on"):
+        analyze.rice_estimate_planes(x, torch.zeros(64, dtype=torch.int64), 8, 14)
+    with pytest.raises(ValueError, match="contiguous"):
+        crc16.crc16_frames(x.t(), torch.zeros(3, dtype=torch.int64, device="cuda"))
+
+
+def test_encode_on_card_launches_every_kernel(rng):
+    """An encode on the card goes through the analysis, deposit and CRC
+    kernels, and an LPC encode through the Rice kernel, with no plain
+    version called; the tail too."""
+    from zigflac_tpu_torch.ops import analyze, crc16
+
+    wav = _wav(rng, 2 * 4096 + 1972)
+    for cfg, rice in ((EncoderConfig(), 0), (EncoderConfig(prediction="lpc"), 2)):
+        for m in (analyze, crc16, deposit):
+            m.reset_counts()
+        got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda")
+        counts = (analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES,
+                  deposit.KERNEL_LAUNCHES)
+        assert counts == (2, rice, 2, 2)
+        assert analyze.PLAIN_CALLS == crc16.PLAIN_CALLS == deposit.PLAIN_CALLS == 0
+        assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+
+
+def test_plan_frames_on_card_does_not_synchronize(rng):
+    """The analysis of a batch (plan_frames with the kernel) never waits for
+    the card: it runs under torch.cuda.set_sync_debug_mode("error")."""
+    from zigflac_tpu_torch.ops import analyze
+
+    frames = torch.from_numpy(_analysis_planes(rng, 2 * 16, 4096, 16).reshape(16, 2, 4096))
+    frames = frames.cuda()
+    analyze.plan_frames(frames, 16, EncoderConfig())  # the kernel built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = analyze.plan_frames(frames, 16, EncoderConfig())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = analyze.plan_frames(frames.cpu(), 16, EncoderConfig())
+    for name in analyze.FrameWirePlan._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name

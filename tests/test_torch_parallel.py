@@ -215,7 +215,8 @@ def test_distributed_helpers_single_process(mesh):
 def test_default_rule_and_mesh_checks(monkeypatch):
     """The default rule: no group and no card means one device, and
     ZIGFLAC_MESH=0 means one device whatever is visible; an explicit mesh
-    wins. A mesh must be process-major and divide the batch."""
+    wins, and default_mesh() without a card raises. A mesh must be
+    process-major and divide the batch."""
     assert pipeline._product_mesh(CPU) is None
     cfg = zt.EncoderConfig(block_size=256)
     assert pipeline.DevicePipeline(cfg, 16, CPU)._mesh is None
@@ -225,7 +226,8 @@ def test_default_rule_and_mesh_checks(monkeypatch):
     explicit = default_mesh([CPU, CPU])
     assert pipeline.DevicePipeline(cfg, 16, CPU, mesh=explicit)._mesh is explicit
     assert explicit.entries == ((0, CPU), (0, CPU)) and explicit.devices == (CPU, CPU)
-    assert default_mesh().entries == ((0, CPU),)  # no card here
+    with pytest.raises(RuntimeError, match="is_available"):
+        default_mesh()  # no card here, and no fall to the CPU
     with pytest.raises(ValueError, match="process-major"):
         dist.local_row_bounds(Mesh(((0, CPU), (1, CPU), (0, CPU))), 6)
     with pytest.raises(ValueError, match="no devices"):

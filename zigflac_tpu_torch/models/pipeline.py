@@ -5,8 +5,9 @@ frames [N, C, B] PCM  ──(device)──>  dense frame-stream words + sizes
                           (host) slice + write — no per-frame work
 
 One batch function covers plane construction, stereo-mode and subframe
-selection, the Rice search, bit packing (the CUDA deposit kernel on the
-card), CRC-16 and stream compaction — everything between the WAV feeder and
+selection, the Rice search (the CUDA analysis kernel on the card), bit
+packing (the CUDA deposit kernel), CRC-16 (the CUDA CRC kernel) and stream
+compaction — everything between the WAV feeder and
 the output bytes. Outputs come back as one dense stream sized by a capacity
 ladder (compressed-size budget -> verbatim-size budget -> exact padded
 words). Batches are dispatched before any is collected, so on a CUDA device
@@ -28,14 +29,8 @@ import torch
 from ..metadata import StreamInfo
 from ..native import assemble_frames, assemble_ranges
 from ..ops.analyze import lpc_order_of, plan_frames
-from ..ops.bitpack import (
-    ALIGN_W,
-    compact_stream_aligned,
-    deposit_crc16,
-    max_frame_words,
-    pack_frames,
-)
-from ..ops.crc16 import crc16_words
+from ..ops.bitpack import ALIGN_W, compact_stream_aligned, max_frame_words, pack_frames
+from ..ops.crc16 import crc16_frames
 from ..ops.header import HeaderStatic, header_static
 from ..utils import stages
 from ..utils.config import EncoderConfig
@@ -129,16 +124,15 @@ def _encode_batch(
     block_size: int,
     max_words: int,
 ):
-    """Words path: (words int32 [N, max_words], total_bits, crcs)."""
+    """Words path: (words int32 [N, max_words], total_bits), before the
+    CRC-16."""
     stages.mark("begin")
     plan = plan_frames(frames, depth, config)
     stages.mark("analysis")
-    words, total_bits = pack_frames(
+    return pack_frames(
         plan, frame_numbers, hstatic, block_size, config.max_rice_order, max_words,
         lpc_order_of(config), config.lpc_precision,
     )
-    crcs = crc16_words(words, (total_bits + 7) >> 3)
-    return words, total_bits, crcs
 
 
 def _encode_batch_compact(
@@ -154,12 +148,12 @@ def _encode_batch_compact(
 ):
     """Compact path: (stream int32 [~capb / 4], meta int64 [N + 1] =
     [frame_bytes..., total_words])."""
-    words, total_bits, crcs = _encode_batch(
+    words, total_bits = _encode_batch(
         frames, frame_numbers, config=config, depth=depth, hstatic=hstatic,
         block_size=block_size, max_words=max_words,
     )
     byte_len = (total_bits + 7) >> 3
-    words = deposit_crc16(words, byte_len, crcs)
+    _, words = crc16_frames(words, byte_len)
     stages.mark("crc")
     frame_bytes = byte_len + 2
     stream, total_words = compact_stream_aligned(words, frame_bytes, capb // 4)
@@ -367,14 +361,17 @@ class DevicePipeline:
         hstatic, max_words, _ = compact_shape(self.config, self.bit_depth, c, B, rec["rate"],
                                               None, chunk.shape[0])
         device = rec.get("device")
-        words, total_bits, crcs = _encode_batch(
+        words, total_bits = _encode_batch(
             self._feed(chunk, device),
             self._to_device(rec["fns"].astype(np.int64), device),
             config=self.config, depth=self.bit_depth, hstatic=hstatic,
             block_size=B, max_words=max_words,
         )
+        byte_len = (total_bits + 7) >> 3
+        # the host assembles each frame with its CRC
+        crcs, _ = crc16_frames(words, byte_len, write=False)
         words = words[:nreal].cpu().numpy().view(np.uint32)
-        byte_len = ((total_bits[:nreal] + 7) >> 3).cpu().numpy()
+        byte_len = byte_len[:nreal].cpu().numpy()
         crcs = crcs[:nreal].cpu().numpy()
         self.transfer_stats["d2h_bytes"] += words.nbytes + byte_len.nbytes + crcs.nbytes
         if (byte_len > words.shape[1] * 4).any():

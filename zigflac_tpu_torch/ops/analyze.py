@@ -19,6 +19,14 @@ of the reference runs as integer tensor ops over a batch of planes:
 Depth 32 runs wide: the 33-bit side plane is int64 and analyzed with
 ``bits_of_t = 64``, as the reference's i64 side samples are.
 
+The order search, the residual and the Rice sweep of every plane are one
+hand-written CUDA kernel on the card (``csrc/analyze.cu``): ``analyze_fixed``
+and ``rice_estimate_planes`` route by device, a CUDA tensor to the kernel
+(or a raise), a CPU tensor to the plain versions ``best_fixed_order``,
+``residuals_for_order`` and ``rice_estimate``. ``KERNEL_LAUNCHES`` counts
+``zf_analyze_fixed`` launches, ``RICE_KERNEL_LAUNCHES`` ``zf_rice_estimate``
+launches and ``PLAIN_CALLS`` the plain routes of both wrappers.
+
 Integer policy: every unsigned quantity travels as int64 (torch has no
 uint32/uint64 arithmetic on the CPU). Sums of zigzags stay below 2^48, so
 the only place the u64 wrap matters is the Rice cost of a partition whose
@@ -36,6 +44,19 @@ from . import lpc
 
 # stands in for u64::MAX: a disqualified candidate's cost
 I64_MAX = torch.iinfo(torch.int64).max
+# params columns of a plane (the partitions of order 8)
+PARAM_COLS = 256
+
+KERNEL_LAUNCHES = 0
+RICE_KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def reset_counts() -> None:
+    global KERNEL_LAUNCHES, RICE_KERNEL_LAUNCHES, PLAIN_CALLS
+    KERNEL_LAUNCHES = 0
+    RICE_KERNEL_LAUNCHES = 0
+    PLAIN_CALLS = 0
 
 # res_k[i] = sum_m BINOM[k][m] * s[i-m] (libFLAC/fixed.zig:9-15)
 BINOM = (
@@ -274,6 +295,147 @@ def rice_estimate(
     return pick(totals), pick(methods), best_po, p_all.gather(0, idx).squeeze(0)
 
 
+class FixedAnalysis(NamedTuple):
+    """The best fixed order of each plane and its Rice estimate; leading
+    dims match the planes' batch dims."""
+
+    order: torch.Tensor       # i64: 0..4, the first minimum
+    ok: torch.Tensor          # bool: the order is usable (wide mode)
+    residuals: torch.Tensor   # i32 [..., B]: the order's, warmup slots 0
+    bits: torch.Tensor        # i64: rice_estimate's, before the ok test
+    method: torch.Tensor      # i64
+    part_order: torch.Tensor  # i64
+    params: torch.Tensor      # i64 [..., 256]
+    all_eq: torch.Tensor      # bool: every sample equals the first
+
+
+def analyze_fixed_plain(
+    planes: torch.Tensor, wide: bool, max_rice_order: int, max_param: int
+) -> FixedAnalysis:
+    """``analyze_fixed`` as plain torch ops."""
+    order, ok = best_fixed_order(planes, wide)
+    residuals = residuals_for_order(planes, order)
+    bits, method, part_order, params = rice_estimate(
+        residuals, order, planes.shape[-1], max_rice_order, max_param
+    )
+    all_eq = (planes == planes[..., :1]).all(dim=-1)
+    return FixedAnalysis(order, ok, residuals, bits, method, part_order, params, all_eq)
+
+
+def _check_rice_args(B: int, max_rice_order: int, max_param: int) -> None:
+    if not 1 <= B <= 65535:
+        raise ValueError(f"block size must be 1..65535, got {B}")
+    if not 0 <= max_rice_order <= 15:
+        raise ValueError(f"max_rice_order must be 0..15, got {max_rice_order}")
+    if not 0 <= max_param <= 30:
+        raise ValueError(f"max_param must be 0..30, got {max_param}")
+
+
+def _check_tensor(name: str, t: torch.Tensor, dtypes, device) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(lib, fn, name: str, *args) -> None:
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: {lib.zf_error_string(err).decode()}")
+
+
+def _rice_outputs(batch_shape, B: int, max_rice_order: int, lib, dev):
+    """(bits, method, part_order, params, scratch): the Rice outputs of a
+    launch, and the global-memory pyramid a plane when the kernel cannot keep
+    it in shared memory (else None)."""
+    p = 1
+    for d in batch_shape:
+        p *= d
+    i64 = dict(dtype=torch.int64, device=dev)
+    out = [torch.empty(batch_shape, **i64) for _ in range(3)]
+    out.append(torch.empty(batch_shape + (PARAM_COLS,), **i64))
+    po_top = min(max_rice_order, _ctz(B))
+    scratch = None
+    if po_top > lib.zf_shared_max_po():
+        scratch = torch.empty((p, (2 << po_top) - 1), **i64)
+    return (*out, scratch)
+
+
+def analyze_fixed(
+    planes: torch.Tensor, wide: bool, max_rice_order: int, max_param: int
+) -> FixedAnalysis:
+    """Order search, residual and Rice estimate of planes ``[..., B]``
+    (int32, or int64 for the 33-bit side plane) on their device: the CUDA
+    kernel ``zf_analyze_fixed`` for CUDA tensors, ``analyze_fixed_plain``
+    for CPU tensors. ``wide`` disqualifies an order whose differences leave
+    int32; ``max_param`` is 14 or 30 (at most 30)."""
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    B = planes.shape[-1] if planes.dim() else 0
+    _check_rice_args(B, max_rice_order, max_param)
+    _check_tensor("planes", planes, (torch.int32, torch.int64), planes.device)
+    if planes.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return analyze_fixed_plain(planes, wide, max_rice_order, max_param)
+    if planes.device.type != "cuda":
+        raise NotImplementedError(f"no analysis kernel for device {planes.device}")
+    from ._build import library
+
+    lib = library()
+    dev = planes.device
+    batch_shape = tuple(planes.shape[:-1])
+    order = torch.empty(batch_shape, dtype=torch.int64, device=dev)
+    ok = torch.empty(batch_shape, dtype=torch.bool, device=dev)
+    all_eq = torch.empty(batch_shape, dtype=torch.bool, device=dev)
+    residuals = torch.empty(planes.shape, dtype=torch.int32, device=dev)
+    bits, method, part_order, params, scratch = _rice_outputs(
+        batch_shape, B, max_rice_order, lib, dev)
+    with torch.cuda.device(dev):
+        _launch(lib, lib.zf_analyze_fixed, "analysis",
+                planes.data_ptr(), planes.dtype == torch.int64, planes.numel() // B, B,
+                bool(wide), max_rice_order, max_param, order.data_ptr(), ok.data_ptr(),
+                residuals.data_ptr(), bits.data_ptr(), method.data_ptr(),
+                part_order.data_ptr(), params.data_ptr(), all_eq.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None)
+    KERNEL_LAUNCHES += 1
+    return FixedAnalysis(order, ok, residuals, bits, method, part_order, params, all_eq)
+
+
+def rice_estimate_planes(
+    residuals: torch.Tensor, order: torch.Tensor, max_rice_order: int, max_param: int
+):
+    """``rice_estimate`` of int32 residuals ``[..., B]`` with their predictor
+    orders (int64, 0..32) on their device: the CUDA kernel
+    ``zf_rice_estimate`` for CUDA tensors, ``rice_estimate`` for CPU
+    tensors. Returns (bits, method, part_order, params [..., 256])."""
+    global RICE_KERNEL_LAUNCHES, PLAIN_CALLS
+    B = residuals.shape[-1] if residuals.dim() else 0
+    _check_rice_args(B, max_rice_order, max_param)
+    _check_tensor("residuals", residuals, (torch.int32,), residuals.device)
+    _check_tensor("order", order, (torch.int64,), residuals.device)
+    if tuple(order.shape) != tuple(residuals.shape[:-1]):
+        raise ValueError(f"order must be {tuple(residuals.shape[:-1])}, "
+                         f"got {tuple(order.shape)}")
+    if residuals.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return rice_estimate(residuals, order, B, max_rice_order, max_param)
+    if residuals.device.type != "cuda":
+        raise NotImplementedError(f"no Rice kernel for device {residuals.device}")
+    from ._build import library
+
+    lib = library()
+    bits, method, part_order, params, scratch = _rice_outputs(
+        tuple(order.shape), B, max_rice_order, lib, residuals.device)
+    with torch.cuda.device(residuals.device):
+        _launch(lib, lib.zf_rice_estimate, "Rice",
+                residuals.data_ptr(), order.data_ptr(), order.numel(), B, max_rice_order,
+                max_param, bits.data_ptr(), method.data_ptr(), part_order.data_ptr(),
+                params.data_ptr(), scratch.data_ptr() if scratch is not None else None)
+    RICE_KERNEL_LAUNCHES += 1
+    return bits, method, part_order, params
+
+
 def lpc_order_of(config: EncoderConfig) -> int:
     """The largest LPC order the analysis may pick: the configured one
     when the prediction is LPC, else 0 (no LPC subframes)."""
@@ -320,13 +482,13 @@ def analyze_planes(
     wide = not (sample_size < 28 and bits_of_t == 32)
 
     planes, wasted = _apply_wasted(planes, sample_size, config)
-    all_eq = (planes == planes[..., :1]).all(dim=-1)
     verb_bits = B * bits_of_t
     z = torch.zeros(batch_shape, dtype=torch.int64, device=dev)
     zq = torch.zeros(batch_shape + (lpc.MAX_LPC_ORDER,), dtype=torch.int64, device=dev)
 
     lpc_order = lpc_order_of(config)
     if B <= max(MAX_FIXED_ORDER, lpc_order) or config.prediction == "none":
+        all_eq = (planes == planes[..., :1]).all(dim=-1)
         return PlaneAnalysis(
             kind=torch.where(all_eq, 0, 1),
             est_bits=torch.where(all_eq, bits_of_t, verb_bits),
@@ -336,13 +498,11 @@ def analyze_planes(
             qcoeffs=zq, qshift=z, wasted=wasted,
         )
 
-    order, ok = best_fixed_order(planes, wide)
-    residuals = residuals_for_order(planes, order)
     max_param = min(
         30 if sample_size > 16 else MAX_RICE_PARAM_4BIT, config.max_rice_param
     )
-    rice_bits, method, part_order, params = rice_estimate(
-        residuals, order, B, config.max_rice_order, max_param
+    order, ok, residuals, rice_bits, method, part_order, params, all_eq = analyze_fixed(
+        planes.contiguous(), wide, config.max_rice_order, max_param
     )
     # a wide-mode overflow disqualifies the fixed candidate entirely
     rice_bits = torch.where(ok, rice_bits, I64_MAX)
@@ -354,8 +514,8 @@ def analyze_planes(
         l_order, res_lpc, l_q, l_shift, l_ok = lpc.analyze_lpc(
             planes, lpc_order, config.lpc_precision
         )
-        l_bits, l_method, l_po, l_params = rice_estimate(
-            res_lpc, l_order, B, config.max_rice_order, max_param
+        l_bits, l_method, l_po, l_params = rice_estimate_planes(
+            res_lpc, l_order, config.max_rice_order, max_param
         )
         l_cost = l_bits + 9 + l_order * config.lpc_precision
         use_lpc = l_ok & (l_cost < rice_bits)
@@ -445,8 +605,10 @@ def plan_frames_stereo(
 
     # wire planes per mode (L, R, M, S = 0..3): wire0 = [L, L, S, M],
     # wire1 = [R, S, R, S]
-    w0_src = torch.tensor([0, 0, 3, 2], device=frames.device)[ch_type]
-    w1_src = torch.tensor([1, 3, 1, 3], device=frames.device)[ch_type]
+    # (index arithmetic, not a table: a table would be copied to the device
+    # and wait for it)
+    w0_src = torch.where(ch_type < 2, 0, 5 - ch_type)
+    w1_src = 1 + 2 * (ch_type % 2)
     cols = torch.arange(n, device=frames.device)
 
     def gather_ch(x):

@@ -5,6 +5,12 @@ the fixed-width padded word buffer every byte position has a static
 distance from the end, so each word's contribution is a carry-less product
 with a per-column constant. The CRC of the real (shorter) frame follows by
 multiplying with x^(-8*pad) mod G, one 16x16 GF(2) product per frame.
+
+That is the plain version. ``crc16_frames`` routes by device: a CUDA tensor
+launches the hand-written kernel ``zf_crc16_frames`` (``csrc/crc16.cu``, one
+CTA a frame; it ORs the CRC bytes into the words in place) or raises, a CPU
+tensor takes ``crc16_words`` and ``bitpack.deposit_crc16``.
+``KERNEL_LAUNCHES`` and ``PLAIN_CALLS`` count each.
 """
 
 from __future__ import annotations
@@ -15,6 +21,16 @@ import numpy as np
 import torch
 
 from ..crc import CRC16_POLY, xpow_neg8_table, xpow_shift_table
+from .bitpack import deposit_crc16
+
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def reset_counts() -> None:
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    KERNEL_LAUNCHES = 0
+    PLAIN_CALLS = 0
 
 
 @lru_cache(maxsize=16)
@@ -70,3 +86,50 @@ def crc16_words(words: torch.Tensor, byte_len: torch.Tensor) -> torch.Tensor:
     # gets a meaningless CRC and is re-encoded at a larger capacity
     pad = (max_bytes - byte_len.to(torch.int64)).clamp(0, max_bytes)
     return _reduce31(_clmul16(crc, inv[pad]))
+
+
+def crc16_frames_plain(words: torch.Tensor, byte_len: torch.Tensor, write: bool = True):
+    """``crc16_frames`` as plain torch ops; the words come back as a copy."""
+    crcs = crc16_words(words, byte_len)
+    return crcs, deposit_crc16(words, byte_len, crcs) if write else words
+
+
+def crc16_frames(words: torch.Tensor, byte_len: torch.Tensor, write: bool = True):
+    """(crcs int64 [N], words): the CRC-16 of each frame's first
+    ``byte_len`` bytes (words int32 [N, W], MSB-first, zero at and past
+    ``byte_len``; byte_len int64 [N]) and, with ``write``, the words with
+    the CRC's two bytes ORed in big-endian at ``byte_len`` (a position past
+    the row is dropped). On a CUDA device the kernel updates ``words`` in
+    place and returns it; on the CPU the plain version returns a copy. A
+    frame over the row (byte_len > 4W) gets a CRC its caller must not
+    read."""
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    if words.dim() != 2 or tuple(byte_len.shape) != (words.shape[0],):
+        raise ValueError(f"words must be [N, W] and byte_len [N], got {tuple(words.shape)} "
+                         f"and {tuple(byte_len.shape)}")
+    for name, t, dt in (("words", words, torch.int32), ("byte_len", byte_len, torch.int64)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.device != words.device:
+            raise ValueError(f"{name} is on {t.device}, words on {words.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if words.shape[1] < 1:
+        raise ValueError("words must have at least one column")
+    if words.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return crc16_frames_plain(words, byte_len, write)
+    if words.device.type != "cuda":
+        raise NotImplementedError(f"no CRC-16 kernel for device {words.device}")
+    from ._build import library
+
+    lib = library()
+    n, w = words.shape
+    crcs = torch.empty(n, dtype=torch.int64, device=words.device)
+    with torch.cuda.device(words.device):
+        err = lib.zf_crc16_frames(words.data_ptr(), byte_len.data_ptr(), n, w, bool(write),
+                                  crcs.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"CRC-16 kernel launch failed: {lib.zf_error_string(err).decode()}")
+    KERNEL_LAUNCHES += 1
+    return crcs, words

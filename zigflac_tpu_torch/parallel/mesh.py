@@ -54,10 +54,13 @@ class Mesh:
 
 
 def _local_devices():
-    """This process's devices: the rank's current card in a group of
-    processes, every visible card in a single process, else the CPU."""
+    """This process's cards: the rank's current card in a group of
+    processes, every visible card in a single process. Without a card it
+    raises, as ``pipeline.resolve_device("cuda")`` does: a CPU mesh is built
+    only from devices the caller lists."""
     if not torch.cuda.is_available():
-        return [torch.device("cpu")]
+        raise RuntimeError("default_mesh() takes the visible cards, but "
+                           "torch.cuda.is_available() is false: list the devices")
     if distributed.process_count() > 1:
         return [torch.device("cuda", torch.cuda.current_device())]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -68,8 +71,8 @@ def default_mesh(devices=None) -> Mesh:
     each process owns one CONTIGUOUS frame-row range
     (distributed.local_row_bounds relies on this). ``devices`` lists this
     process's devices, in order (default: the rank's current card in a
-    group of processes, every visible card in a single process, the CPU
-    without a card). In a group, every process calls this at the same
+    group of processes, every visible card in a single process; without a
+    card the default raises). In a group, every process calls this at the same
     point: the lists are exchanged once (``all_gather_object``)."""
     local = [torch.device(d) for d in (devices if devices is not None else _local_devices())]
     if not local:
