@@ -27,14 +27,20 @@ Phases:
      output field equal: zf_analyze_fixed on random planes at depths 8-32
      and the 33-bit int64 side plane, a wide-mode disqualification of each
      order, equal, zero and one-sample planes, a first partition of
-     negative size (order 3 at B = 512), blocks of 1, 5, 17, 1972, 4096,
-     4608 and 65535 samples, partition orders 0, 8 and 15 (the pyramid in
-     global memory) with params up to 14 and 30; zf_rice_estimate on
-     partitions about half full and all zero and on orders 0-32; then the
-     planes of one batch each of config 1, config 3 and the 32-bit input as
+     negative size (order 3 at B = 512), blocks of 1 to 65535 samples
+     (partitions of one 16-sample run, of whole runs, shorter than a run and
+     neither), partition orders 0, 4 and 8 with params up to 14 and 30,
+     max_rice_order 12 at B = 2304, planes at the narrow arithmetic's limit
+     of |x| and one past it; partition order 15 refused (ValueError, as the
+     JAX package) by both kernels' wrappers and by an encode at
+     max_rice_order 12, before any launch; zf_rice_estimate on partitions
+     about half full and all zero and on orders 0-32; then the planes of one
+     batch each of config 1, config 2, config 3 and the 32-bit input as
      analyze_planes hands them over, and config 3's LPC candidate through
      the Rice entry; config 1's batch and the LPC batch timed in turns with
-     the plain versions, beside their bounds. The synthesis kernel's half
+     the plain versions, config 2's 24-bit batch and the 32-bit input's int64
+     side plane beside them, with their bounds and ptxas's registers and
+     spills of every analysis kernel instance. The synthesis kernel's half
      of this phase (2-synth) runs after phase 6, once the FLAC streams it
      parses exist. Kernel == plain, with the arithmetic that each block
      of 32 subframes chose read back (taps summed, int32 or 64-bit
@@ -320,6 +326,18 @@ def crc_bound(byte_len: np.ndarray, w: int):
     frame_bytes = int(np.minimum(byte_len, 4 * w).sum())
     nbytes = frame_bytes + byte_len.size * (8 + 8 + 2)
     return (nbytes, *_bound(nbytes, CRC_INT32_OPS_PER_BYTE * frame_bytes))
+
+
+def ptxas_of(kernels):
+    """ptxas's registers, shared memory and spills of every compiled
+    instance of the named kernels, from this process's nvcc run."""
+    from zigflac_tpu_torch.ops import _build
+
+    lines = _build.BUILD_LOG.splitlines()
+    return [{"function": ln.split("'")[1],
+             "ptxas": [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]}
+            for i, ln in enumerate(lines)
+            if "Compiling entry function" in ln and any(k in ln for k in kernels)]
 
 
 def _sha(b: bytes) -> str:
@@ -639,13 +657,16 @@ def phase2_analysis(env, batches, lpc_batch):
     output field equal: zf_analyze_fixed on random planes at depths 8-32 and
     the int64 side plane, a wide-mode disqualification of each order, equal,
     zero and one-sample planes, a first partition of negative size, blocks
-    of 1 to 65535 samples, partition orders 0, 8 and 15 and params up to 14
-    and 30; zf_rice_estimate on partitions about half full and all zero and
-    on orders 0-32; then the real planes of one batch each of ``batches``
+    of 1 to 65535 samples, partition orders 0, 4 and 8 and params up to 14
+    and 30, max_rice_order 12 at B = 2304, planes at the narrow arithmetic's
+    limit and one past it; partition order 15 refused before any launch;
+    zf_rice_estimate on partitions about half full and all zero and on
+    orders 0-32; then the real planes of one batch each of ``batches``
     (name -> [(planes, wide, max_param)], the calls analyze_planes makes)
     and the LPC candidate's residuals of ``lpc_batch`` (residuals, orders).
     Config 1's batch and the LPC batch are timed in turns with the plain
-    versions. Returns the two kernels' entries for the last lines."""
+    versions, config 2's batch and the 32-bit input's side plane beside
+    them. Returns the two kernels' entries for the last lines."""
     torch, dev, analyze = env.torch, env.dev, env.analyze
     rng = np.random.default_rng(0xA7A1)
     max_err = {"fixed": 0, "rice": 0}
@@ -700,10 +721,35 @@ def phase2_analysis(env, batches, lpc_batch):
     cube = np.stack([i**3 // 60, i**3 // 60 + (i % 11 == 0)]).astype(np.int32)
     if fixed(cube, False).order.tolist() != [3, 3]:  # order 3, po 8: first size 2 - 3
         raise AssertionError("the negative first partition case lost its order 3")
-    for b in (1, 5, 17, 1972, 4096, 4608, 65535):
+    for b in (1, 5, 17, 64, 256, 1152, 1972, 4096, 4608, 8192, 65535):
         fixed(_analysis_planes(rng, 3 if b == 65535 else 10, b, 16), False)
-    for mro, max_param in ((0, 14), (8, 30), (15, 14), (15, 30)):  # 15: pyramid in global memory
+    for mro, max_param in ((0, 14), (4, 30), (8, 30)):
         fixed(_analysis_planes(rng, 10, BLOCK, 24), False, mro, max_param)
+    # partition orders above 8 are refused (ValueError, as the JAX package
+    # raises) before any launch; max_rice_order 12 at B = 2304 (ctz 8) is legal
+    refused = []
+    x15 = torch.from_numpy(_analysis_planes(rng, 10, BLOCK, 24)).to(dev)
+    launches = (analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES)
+    for call in (lambda: analyze.analyze_fixed(x15, False, 15, 14),
+                 lambda: analyze.analyze_fixed(x15, False, 15, 30),
+                 lambda: analyze.rice_estimate_planes(
+                     x15, torch.zeros(10, dtype=torch.int64, device=dev), 15, 30)):
+        try:
+            call()
+        except ValueError:
+            refused.append(True)
+    if refused != [True] * 3 or launches != (analyze.KERNEL_LAUNCHES,
+                                             analyze.RICE_KERNEL_LAUNCHES):
+        raise AssertionError(f"partition order 15 not refused before a launch: {refused}")
+    fixed(_analysis_planes(rng, 10, 2304, 24), False, 12, 30)
+    # planes at the narrow arithmetic's limit of |x| (2^23 - 1) and one past
+    t = np.arange(BLOCK)
+    for lim in ((1 << 23) - 1, 1 << 23):
+        noise = rng.integers(-lim + 1, lim, BLOCK)
+        noise[700] = -lim
+        edge = np.stack([np.where(t % 2 == 0, lim, -lim), np.full(BLOCK, -lim), noise])
+        for wide in (False, True):
+            fixed(edge.astype(np.int32), wide, 8, 30)
     for b, order in ((4096, 2), (272, 1), (48, 1), (4608, 3)):
         orders = np.full(30, order, np.int64)
         rice(_quiet_residuals(rng, 30, b, orders), orders, 8, 30)
@@ -714,7 +760,7 @@ def phase2_analysis(env, batches, lpc_batch):
         res[1::2] >>= 10
         for max_param in (14, 30):
             rice(res, orders, 8, max_param)
-    rice(_quiet_residuals(rng, 66, 4096, orders), orders, 15, 30)
+    rice(_quiet_residuals(rng, 66, 2304, orders), orders, 12, 30)
 
     out = {}
     for name, calls in batches.items():
@@ -728,7 +774,16 @@ def phase2_analysis(env, batches, lpc_batch):
         order.cpu().flatten().numpy()).tolist(), part_orders=np.bincount(
         got[2].cpu().flatten().numpy(), minlength=9).tolist())
 
-    # config 1's batch and the LPC candidate's, in turns with the plain versions
+    # config 1's batch and the LPC candidate's, in turns with the plain versions;
+    # the 24-bit batch (config 2's) and the int64 side plane of the 32-bit
+    # input through the kernel beside them
+    shapes = {}
+    for name, (x, wide, mp) in (("config2_24bit", batches["config2"][0]),
+                                ("depth32_side_int64", batches["depth32"][1])):
+        run = lambda: analyze.analyze_fixed(x, wide, 8, mp)
+        b = analysis_bound(x.numel() // BLOCK, BLOCK, x.element_size(), True)
+        shapes[name] = dict(planes=list(x.shape), dtype=str(x.dtype), kernel_ms=cuda_ms(torch, run),
+                            bound_ms=b[1], bound_by=b[2])
     x1 = batches["config1"][0][0]
     run = lambda: analyze.analyze_fixed(x1, False, 8, 14)
     run_plain = lambda: analyze.analyze_fixed_plain(x1, False, 8, 14)
@@ -743,12 +798,13 @@ def phase2_analysis(env, batches, lpc_batch):
     p1 = x1.numel() // BLOCK
     fb = analysis_bound(p1, BLOCK, x1.element_size(), True)
     rb = analysis_bound(order.numel(), BLOCK, 4, False)
-    _log("2-analysis", max_abs_err=max_err, batches=out, config1_kernel_ms=f_kernel,
+    _log("2-analysis", max_abs_err=max_err, batches=out, shapes=shapes, config1_kernel_ms=f_kernel,
          config1_plain_ms=f_plain, config1_bound_bytes=fb[0], config1_bound_ms=fb[1],
          config1_bound_by=fb[2], config1_bound_ops_ms=fb[3], lpc_rice_kernel_ms=r_kernel,
          lpc_rice_plain_ms=r_plain, lpc_rice_bound_bytes=rb[0], lpc_rice_bound_ms=rb[1],
          lpc_rice_bound_by=rb[2], lpc_rice_bound_ops_ms=rb[3],
-         launches_here=[analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES])
+         launches_here=[analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES],
+         ptxas=ptxas_of(("analyze_fixed_kernel", "rice_estimate_kernel")))
     entry = lambda name, line, err, k, p, b: {
         "name": name, "route": "cuda", "source": "zigflac_tpu_torch/csrc/analyze.cu",
         "replaces": f"zigflac_tpu/ops/analyze.py:{line}", "max_abs_err": err,
@@ -1622,12 +1678,24 @@ def main() -> int:
         return [(torch.stack([left, right, mid, side]).to(torch.int32), False, max_param)]
 
     an_batches = {"config1": batch_planes(wav1, 16), "config3": batch_planes(wav3, 16),
-                  "depth32": batch_planes(wav32, 32)}
+                  "depth32": batch_planes(wav32, 32),
+                  "config2": batch_planes(bench_wav(write_wav, CONFIG2_SAMPLES, depth=24,
+                                                    rate=CONFIG2_RATE), 24)}
     l_order, l_res, *_ = lpc.analyze_lpc(an_batches["config3"][0][0], cfg_lpc.lpc_order,
                                          cfg_lpc.lpc_precision)
     fixed_entry, rice_entry = phase2_analysis(
         SimpleNamespace(torch=torch, dev=dev, analyze=analyze), an_batches, (l_res, l_order))
     del an_batches, l_order, l_res
+    # the encode refuses a partition order above 8 as the JAX package does
+    # (ValueError), before any device work
+    counts = (analyze.KERNEL_LAUNCHES, deposit.KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES)
+    try:
+        zt.encode_wav_bytes(wav3, config=replace(cfg1, max_rice_order=12), device="cuda")
+        raise AssertionError("max_rice_order 12 at block 4096 was not refused")
+    except ValueError:
+        pass
+    if counts != (analyze.KERNEL_LAUNCHES, deposit.KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES):
+        raise AssertionError("the refused encode launched a kernel")
 
     # the port's first-min / last-min tie rules on the card
     ties = torch.tensor([[3, 1, 2], [1, 1, 5], [1, 0, 2]], device=dev)

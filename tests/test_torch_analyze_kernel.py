@@ -10,6 +10,7 @@ Tolerance: exact equality. Every output is an integer."""
 
 import ctypes
 import hashlib
+import io
 import os
 import shutil
 import subprocess
@@ -21,11 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+import zigflac_tpu
 import zigflac_tpu_torch
 from conftest import make_signal
 from test_regression_corpus import CASES, VEC_DIR, _case_config, _wav_bytes
 from zigflac_tpu.ops import analyze as jan
 from zigflac_tpu.utils.config import EncoderConfig as JaxConfig
+from zigflac_tpu.wav import write_wav
 from zigflac_tpu_torch import EncoderConfig
 from zigflac_tpu_torch.ops import analyze as tan
 
@@ -33,10 +36,13 @@ CSRC = Path(__file__).resolve().parent.parent / "zigflac_tpu_torch" / "csrc"
 U64_MAX = (1 << 64) - 1
 I64_MAX = (1 << 63) - 1
 
-# csrc/analyze.cu's block with its threads run in turn: each thread's strided
-# share of a pass, then the merge its warp shuffles and shared memory make.
-# Pass 2 adds each zigzag to its partition (the kernel sums a warp's lanes of
-# one partition first; the sums are the same).
+# csrc/analyze.cu's block with its threads run in turn, through the same
+# analyze_steps.cuh helpers: each warp's runs of kZfRun samples with their
+# predecessors, the warp's narrow/wide choice, each thread's run in pass 1
+# and pass 2 (the split sums or the pieces of a run), then the pyramid and
+# every node's Rice param. The kernel sums a warp's lanes of one partition or
+# one level before it adds them; the sums are the same. stats counts, per
+# call: warps in the narrow arithmetic, all warps.
 HOST_HARNESS = r"""
 #include <algorithm>
 #include <vector>
@@ -44,86 +50,164 @@ HOST_HARNESS = r"""
 
 namespace {
 constexpr int kThreads = 256;
+constexpr int kTile = kThreads * kZfRun;
 
-template <typename T>
-void history(const T* x, int64_t i, int64_t (&h)[5]) {
-  for (int m = 0; m < 5; ++m) h[m] = i >= m ? (int64_t)x[i - m] : 0;
-}
-
-void rice_sweep(std::vector<uint64_t>& sums, int64_t b, int po_top, int64_t order,
-                int max_param, int64_t* bits, int64_t* method, int64_t* part_order,
-                int64_t* params) {
-  for (int po = po_top - 1; po >= 0; --po) {
-    uint64_t* lvl = sums.data() + zf_level_offset(po);
-    const uint64_t* up = sums.data() + zf_level_offset(po + 1);
-    for (int64_t j = 0; j < (int64_t(1) << po); ++j) lvl[j] = up[2 * j] + up[2 * j + 1];
+void rice_sweep(std::vector<uint64_t>& pyr, int b, int po_top, int64_t order, int max_param,
+                int64_t* bits, int64_t* method, int64_t* part_order, int64_t* params) {
+  for (int s = 1; s <= 5 && s <= po_top; ++s) {  // the kernel's shuffle levels
+    const int po = po_top - s;
+    for (int j = 0; j < (1 << po); ++j)
+      pyr[zf_level_offset(po) + j] =
+          pyr[zf_level_offset(po + 1) + 2 * j] + pyr[zf_level_offset(po + 1) + 2 * j + 1];
+  }
+  const int nodes = zf_nodes(po_top), l5 = po_top - 5;
+  std::vector<uint8_t> kbest(nodes);
+  ZfLevelAcc lv[kZfMaxPartOrder + 1] = {};
+  for (int n = 0; n < nodes; ++n) {
+    const int po = zf_ilog2(n + 1), j = n + 1 - (1 << po);
+    uint64_t s = 0;
+    if (po >= l5) {
+      s = pyr[n];
+    } else {
+      const int w = 1 << (l5 - po);
+      for (int m = 0; m < w; ++m) s += pyr[zf_level_offset(l5) + j * w + m];
+    }
+    int k;
+    int64_t bc;
+    zf_rice_node((int64_t)s, zf_node_psz(b, po, j, order), max_param, &k, &bc);
+    kbest[n] = (uint8_t)k;
+    zf_level_acc_add(lv[po], k, bc);
   }
   const int dyn = zf_dyn_max_po(order, b, po_top);
-  int64_t totals[16];
-  int methods[16];
+  int methods[kZfMaxPartOrder + 1];
+  int64_t totals[kZfMaxPartOrder + 1];
+  uint32_t key = ~0u;
   for (int po = 0; po <= po_top; ++po) {
-    const uint64_t* lvl = sums.data() + zf_level_offset(po);
-    ZfLevelAcc all = {0, false};
-    for (int t = 0; t < kThreads; ++t) {
-      ZfLevelAcc acc = {0, false};
-      for (int64_t j = t; j < (int64_t(1) << po); j += kThreads) {
-        int k;
-        int64_t bc;
-        zf_rice_node((int64_t)lvl[j], zf_node_psz(b, po, j, order), max_param, &k, &bc);
-        zf_level_acc_add(acc, k, bc);
-      }
-      all.bc += acc.bc;
-      all.wide_param = all.wide_param || acc.wide_param;
-    }
-    zf_level_total(all, po, dyn, max_param, &methods[po], &totals[po]);
+    zf_level_total(lv[po], po, dyn, max_param, &methods[po], &totals[po]);
+    key = std::min(key, zf_part_order_key(totals[po], po));
   }
-  const int best = zf_choose_part_order(totals, po_top);
+  const int best = zf_part_order_of_key(key);
   *bits = totals[best];
   *method = methods[best];
   *part_order = best;
-  const uint64_t* lvl = sums.data() + zf_level_offset(best);
-  for (int j = 0; j < kZfParamCols; ++j) {
-    int k = 0;
-    if (j < (int64_t(1) << best)) {
-      int64_t bc;
-      zf_rice_node((int64_t)lvl[j], zf_node_psz(b, best, j, order), max_param, &k, &bc);
+  for (int j = 0; j < kZfParamCols; ++j)
+    params[j] = j < (1 << best) ? kbest[zf_level_offset(best) + j] : 0;
+}
+
+// A warp's 32 runs of one tile and the warp's narrow/wide choice.
+template <typename T>
+bool load_warp(const T* x, int b, int base, T (&v)[32][kZfRun], T (&p)[32][4]) {
+  uint32_t m = 0;
+  for (int l = 0; l < 32; ++l) {
+    for (int r = 0; r < kZfRun; ++r) {
+      const int i = base + l * kZfRun + r;
+      v[l][r] = i < b ? x[i] : T(0);
     }
-    params[j] = k;
+    for (int q = 0; q < 4; ++q) {
+      const int i = base + l * kZfRun - 1 - q;
+      p[l][q] = i >= 0 && i < b ? x[i] : T(0);
+    }
+    if (sizeof(T) == 4) {
+      for (int r = 0; r < kZfRun; ++r) m = std::max(m, zf_abs_u32((int32_t)v[l][r]));
+      for (int q = 0; q < 4; ++q) m = std::max(m, zf_abs_u32((int32_t)p[l][q]));
+    }
+  }
+  return sizeof(T) == 4 && zf_narrow_ok(m);
+}
+
+template <typename T>
+void pass1_run(const T (&v)[kZfRun], const T (&p)[4], int start, int b, bool narrow, T first,
+               ZfFixedAcc& acc) {
+  if (start >= b) return;
+  const bool masked = start < 4 || start + kZfRun > b;
+  if (narrow) {
+    int32_t v32[kZfRun], p32[4];
+    for (int r = 0; r < kZfRun; ++r) v32[r] = (int32_t)v[r];
+    for (int q = 0; q < 4; ++q) p32[q] = (int32_t)p[q];
+    if (masked) zf_run_fixed_narrow<kZfRun, true>(v32, p32, start, b, (int32_t)first, acc);
+    else zf_run_fixed_narrow<kZfRun, false>(v32, p32, start, b, (int32_t)first, acc);
+  } else if (masked) {
+    zf_run_fixed_wide<kZfRun, true>(v, p, start, b, (int64_t)first, acc);
+  } else {
+    zf_run_fixed_wide<kZfRun, false>(v, p, start, b, (int64_t)first, acc);
   }
 }
 
 template <typename T>
-void analyze_fixed(const T* planes, int64_t p, int64_t b, bool wide, int po_top, int max_param,
+void pass2_run(const T (&v)[kZfRun], const T (&p)[4], int start, int b, bool narrow, int order,
+               int32_t* res, uint64_t* top, int psz) {
+  int32_t r[kZfRun];
+  const bool masked = start < 4 || start + kZfRun > b;
+  if (narrow) {
+    if (masked) zf_run_residual<int32_t, kZfRun, true>(v, p, start, b, order, r);
+    else zf_run_residual<int32_t, kZfRun, false>(v, p, start, b, order, r);
+  } else {
+    if (masked) zf_run_residual<uint64_t, kZfRun, true>(v, p, start, b, order, r);
+    else zf_run_residual<uint64_t, kZfRun, false>(v, p, start, b, order, r);
+  }
+  if (start >= b) return;
+  for (int q = 0; q < kZfRun && start + q < b; ++q) res[start + q] = r[q];
+  if (psz >= kZfRun) {
+    const int key = start / psz;
+    const int split = std::min((key + 1) * psz - start, kZfRun);
+    uint64_t a, c;
+    if (narrow) {
+      uint32_t a32, c32;
+      zf_run_split_sums<uint32_t>(r, split, &a32, &c32);
+      a = a32;
+      c = c32;
+    } else {
+      zf_run_split_sums<uint64_t>(r, split, &a, &c);
+    }
+    if (a) top[key] += a;
+    if (c) top[key + 1] += c;
+  } else {
+    zf_run_pieces(r, start, psz, [&](int key, uint64_t s) {
+      if (s) top[key] += s;
+    });
+  }
+}
+
+template <typename T>
+void analyze_fixed(const T* planes, int64_t np, int b, bool wide, int po_top, int max_param,
                    int64_t* order, uint8_t* ok, int32_t* residuals, int64_t* bits,
-                   int64_t* method, int64_t* part_order, int64_t* params, uint8_t* all_eq) {
-  std::vector<uint64_t> sums(zf_nodes(po_top));
-  for (int64_t q = 0; q < p; ++q) {
+                   int64_t* method, int64_t* part_order, int64_t* params, uint8_t* all_eq,
+                   int64_t* stats) {
+  std::vector<uint64_t> pyr(zf_nodes(po_top));
+  T v[32][kZfRun], p[32][4];
+  const int ntiles = (b + kTile - 1) / kTile, psz = b >> po_top;
+  for (int64_t q = 0; q < np; ++q) {
     const T* x = planes + q * b;
     ZfFixedAcc all;
     zf_fixed_acc_init(all);
-    for (int t = 0; t < kThreads; ++t) {
-      ZfFixedAcc acc;
-      zf_fixed_acc_init(acc);
-      for (int64_t i = t; i < b; i += kThreads) {
-        int64_t h[5];
-        history(x, i, h);
-        zf_fixed_acc_add(acc, h, i, (int64_t)x[0]);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      for (int w = 0; w < kThreads / 32; ++w) {
+        const int base = tile * kTile + w * 32 * kZfRun;
+        const bool narrow = load_warp(x, b, base, v, p);
+        stats[0] += narrow;
+        stats[1] += 1;
+        for (int l = 0; l < 32; ++l) {
+          ZfFixedAcc acc;
+          zf_fixed_acc_init(acc);
+          pass1_run(v[l], p[l], base + l * kZfRun, b, narrow, x[0], acc);
+          zf_fixed_acc_merge(all, acc);
+        }
       }
-      zf_fixed_acc_merge(all, acc);
     }
     int o;
     bool usable;
     zf_choose_fixed_order(all, wide, &o, &usable);
-    std::fill(sums.begin(), sums.end(), 0);
-    uint64_t* top = sums.data() + zf_level_offset(po_top);
-    for (int64_t i = 0; i < b; ++i) {
-      int64_t h[5];
-      history(x, i, h);
-      const int32_t r = zf_fixed_residual(o, h, i);
-      residuals[q * b + i] = r;
-      top[i / (b >> po_top)] += zf_zigzag(r);
+    std::fill(pyr.begin(), pyr.end(), 0);
+    uint64_t* top = pyr.data() + zf_level_offset(po_top);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      for (int w = 0; w < kThreads / 32; ++w) {
+        const int base = tile * kTile + w * 32 * kZfRun;
+        const bool narrow = load_warp(x, b, base, v, p);
+        for (int l = 0; l < 32; ++l)
+          pass2_run(v[l], p[l], base + l * kZfRun, b, narrow, o, residuals + q * b, top, psz);
+      }
     }
-    rice_sweep(sums, b, po_top, o, max_param, bits + q, method + q, part_order + q,
+    rice_sweep(pyr, b, po_top, o, max_param, bits + q, method + q, part_order + q,
                params + q * kZfParamCols);
     order[q] = o;
     ok[q] = usable;
@@ -136,14 +220,14 @@ extern "C" void zf_analyze_fixed_host(const void* planes, int planes_i64, int64_
                                       int wide, int64_t max_rice_order, int64_t max_param,
                                       int64_t* order, uint8_t* ok, int32_t* residuals,
                                       int64_t* bits, int64_t* method, int64_t* part_order,
-                                      int64_t* params, uint8_t* all_eq) {
+                                      int64_t* params, uint8_t* all_eq, int64_t* stats) {
   const int po_top = zf_po_top(b, (int)max_rice_order);
   if (planes_i64)
-    analyze_fixed((const int64_t*)planes, p, b, wide != 0, po_top, (int)max_param, order, ok,
-                  residuals, bits, method, part_order, params, all_eq);
+    analyze_fixed((const int64_t*)planes, p, (int)b, wide != 0, po_top, (int)max_param, order,
+                  ok, residuals, bits, method, part_order, params, all_eq, stats);
   else
-    analyze_fixed((const int32_t*)planes, p, b, wide != 0, po_top, (int)max_param, order, ok,
-                  residuals, bits, method, part_order, params, all_eq);
+    analyze_fixed((const int32_t*)planes, p, (int)b, wide != 0, po_top, (int)max_param, order,
+                  ok, residuals, bits, method, part_order, params, all_eq, stats);
 }
 
 extern "C" void zf_rice_estimate_host(const int32_t* residuals, const int64_t* order, int64_t p,
@@ -151,14 +235,19 @@ extern "C" void zf_rice_estimate_host(const int32_t* residuals, const int64_t* o
                                       int64_t* bits, int64_t* method, int64_t* part_order,
                                       int64_t* params) {
   const int po_top = zf_po_top(b, (int)max_rice_order);
-  std::vector<uint64_t> sums(zf_nodes(po_top));
+  std::vector<uint64_t> pyr(zf_nodes(po_top));
   for (int64_t q = 0; q < p; ++q) {
-    std::fill(sums.begin(), sums.end(), 0);
-    uint64_t* top = sums.data() + zf_level_offset(po_top);
+    std::fill(pyr.begin(), pyr.end(), 0);
+    uint64_t* top = pyr.data() + zf_level_offset(po_top);
     for (int64_t i = 0; i < b; ++i) top[i / (b >> po_top)] += zf_zigzag(residuals[q * b + i]);
-    rice_sweep(sums, b, po_top, order[q], (int)max_param, bits + q, method + q,
+    rice_sweep(pyr, (int)b, po_top, order[q], (int)max_param, bits + q, method + q,
                part_order + q, params + q * kZfParamCols);
   }
+}
+
+extern "C" void zf_rice_node_host(const int64_t* s, const int64_t* psz, const int32_t* max_param,
+                                  int64_t n, int32_t* k, int64_t* bc) {
+  for (int64_t i = 0; i < n; ++i) zf_rice_node(s[i], psz[i], max_param[i], &k[i], &bc[i]);
 }
 """
 
@@ -175,16 +264,21 @@ def host(tmp_path_factory):
     (d / "host.cpp").write_text(HOST_HARNESS)
     so = d / "host.so"
     subprocess.run(
-        [gxx, "-std=c++17", "-O1", "-Wall", "-Werror", "-shared", "-fPIC", "-I", str(CSRC),
+        [gxx, "-std=c++17", "-O1", "-Wall", "-Werror", "-Wno-unknown-pragmas", "-shared",
+         "-fPIC", "-I", str(CSRC),
          "-o", str(so), str(d / "host.cpp")],
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.zf_analyze_fixed_host.argtypes = [ptr, i32, i64, i64, i32, i64, i64] + [ptr] * 8
+    lib.zf_analyze_fixed_host.argtypes = [ptr, i32, i64, i64, i32, i64, i64] + [ptr] * 9
     lib.zf_rice_estimate_host.argtypes = [ptr, ptr, i64, i64, i64, i64] + [ptr] * 4
+    lib.zf_rice_node_host.argtypes = [ptr, ptr, ptr, i64, ptr, ptr]
 
     class Host:
+        # analyze_fixed's last call: warps in the narrow arithmetic, warps
+        stats = None
+
         @staticmethod
         def analyze_fixed(planes, wide, max_rice_order, max_param):
             x = np.ascontiguousarray(planes)
@@ -194,8 +288,10 @@ def host(tmp_path_factory):
             out = [np.empty(p, np.int64), np.empty(p, np.uint8), np.empty((p, b), np.int32)]
             out += [np.empty(p, np.int64) for _ in range(3)]
             out += [np.empty((p, 256), np.int64), np.empty(p, np.uint8)]
+            Host.stats = np.zeros(2, np.int64)
             lib.zf_analyze_fixed_host(x.ctypes.data, x.dtype == np.int64, p, b, bool(wide),
-                                      max_rice_order, max_param, *(o.ctypes.data for o in out))
+                                      max_rice_order, max_param, *(o.ctypes.data for o in out),
+                                      Host.stats.ctypes.data)
             shapes = [batch, batch, batch + [b], batch, batch, batch, batch + [256], batch]
             t = [torch.from_numpy(o.reshape(s)) for o, s in zip(out, shapes)]
             t[1], t[7] = t[1].bool(), t[7].bool()
@@ -212,6 +308,15 @@ def host(tmp_path_factory):
                                       max_param, *(x.ctypes.data for x in out))
             shapes = [batch, batch, batch, batch + [256]]
             return tuple(torch.from_numpy(x.reshape(s)) for x, s in zip(out, shapes))
+
+        @staticmethod
+        def rice_node(s, psz, max_param):
+            s, psz = np.ascontiguousarray(s, np.int64), np.ascontiguousarray(psz, np.int64)
+            mp = np.ascontiguousarray(max_param, np.int32)
+            k, bc = np.empty(s.size, np.int32), np.empty(s.size, np.int64)
+            lib.zf_rice_node_host(s.ctypes.data, psz.ctypes.data, mp.ctypes.data, s.size,
+                                  k.ctypes.data, bc.ctypes.data)
+            return k, bc
 
     return Host
 
@@ -408,21 +513,138 @@ def test_rice_wide_values(host, rng):
     _check_rice(host, res, order)
 
 
-def test_partition_order_above_8(host, rng):
-    """max_rice_order 12 at B = 4096 (po_top 12): samples alternating
-    between 2^20 and 0 make one partition a sample the cheapest, so the
-    analysis picks partition order 12 and crops its params to the first 256
-    columns, as the plain version does. The JAX package cannot take
-    po_top > 8 at all (its params pad is negative). ROADMAP sec. 3 records
-    what each package does with it."""
+def test_partition_order_above_8(rng):
+    """max_rice_order 12 at B = 4096 (po_top 12): the params hold partition
+    orders 0-8 only. The JAX package's rice_estimate raises ValueError (its
+    params pad goes negative); the port's plain versions and both wrappers
+    raise it too, on the same input, before any work (no plain call
+    counted)."""
     x = np.zeros((2, 4096), np.int32)
     x[:, ::2] = (1 << 20) + rng.integers(-5, 5, (2, 2048))
-    got = _check_fixed(host, x, wide=False, max_rice_order=12, max_param=30, jax_too=False)
-    assert got.part_order.tolist() == [12, 12]
-    _check_rice(host, got.residuals.numpy(), got.order.numpy(), max_rice_order=15,
-                jax_too=False)
+    order = np.zeros(2, np.int64)
     with pytest.raises(ValueError):
-        jan.rice_estimate(x, np.zeros(2, np.int32), 4096, 12, 30)
+        jan.rice_estimate(x, order.astype(np.int32), 4096, 12, 30)
+    t, o = torch.from_numpy(x), torch.from_numpy(order)
+    tan.reset_counts()
+    for call in (lambda: tan.analyze_fixed_plain(t, False, 12, 30),
+                 lambda: tan.rice_estimate(t, o, 4096, 12, 30),
+                 lambda: tan.analyze_fixed(t, False, 12, 30),
+                 lambda: tan.rice_estimate_planes(t, o, 12, 30)):
+        with pytest.raises(ValueError, match="partition order 12"):
+            call()
+    assert tan.PLAIN_CALLS == 0
+
+
+def _f5_wav(rng, n):
+    t = np.arange(n)
+    x = 9000 * np.sin(2 * np.pi * 440 * t / 44100) + rng.normal(0, 120, (2, n))
+    buf = io.BytesIO()
+    write_wav(buf, np.clip(np.round(x), -32768, 32767).astype(np.int64), 44100, 16)
+    return buf.getvalue()
+
+
+def test_encode_refuses_partition_order_above_8(rng):
+    """max_rice_order 12 at block 4096 (partition order 12): the JAX
+    package's encode raises ValueError, and the port's raises it too, before
+    any analysis runs."""
+    wav = _f5_wav(rng, 2 * 4096 + 100)
+    with pytest.raises(ValueError):
+        zigflac_tpu.encode_wav_bytes(wav, config=JaxConfig(block_size=4096, max_rice_order=12))
+    tan.reset_counts()
+    with pytest.raises(ValueError, match="partition order 12"):
+        zigflac_tpu_torch.encode_wav_bytes(
+            wav, config=EncoderConfig(block_size=4096, max_rice_order=12), device="cpu")
+    assert tan.PLAIN_CALLS == 0
+
+
+def test_encode_max_rice_order_above_8_where_legal(rng):
+    """max_rice_order 12 at block 1152 (ctz 7: partition order 7) is legal
+    in both packages, and both write the same bytes."""
+    wav = _f5_wav(rng, 3 * 1152 + 77)
+    want = zigflac_tpu.encode_wav_bytes(wav, config=JaxConfig(block_size=1152, max_rice_order=12))
+    got = zigflac_tpu_torch.encode_wav_bytes(
+        wav, config=EncoderConfig(block_size=1152, max_rice_order=12), device="cpu")
+    assert got == want
+
+
+@pytest.mark.parametrize("lim", [(1 << 23) - 1, 1 << 23])
+@pytest.mark.parametrize("wide", [False, True])
+def test_narrow_arithmetic_limit(host, rng, lim, wide):
+    """int32 planes whose largest |x| is the narrow arithmetic's limit
+    (2^23 - 1: every warp narrow) and one past it (the warps holding it go
+    wide): alternation at +-lim (the largest differences), a constant -lim,
+    and noise with one sample at -lim in the second warp."""
+    t = np.arange(4096)
+    noise = rng.integers(-lim + 1, lim, 4096)
+    noise[700] = -lim
+    planes = np.stack([np.where(t % 2 == 0, lim, -lim), np.full(4096, -lim), noise])
+    _check_fixed(host, planes.astype(np.int32), wide=wide, max_param=30)
+    narrow, warps = host.stats[:2]
+    assert warps == 3 * 8
+    assert narrow == (24 if lim < 1 << 23 else 7)
+
+
+@pytest.mark.parametrize("total", [(1 << 32) - 1, 1 << 32])
+def test_rice_sum_about_2_32(host, total):
+    """One partition (max_rice_order 0) whose zigzag sum is 2^32 - 1 or 2^32,
+    where a 32-bit sum would end: residuals of 2^19, one of them -2^19 for
+    the odd sum."""
+    res = np.full((2, 4096), 1 << 19, np.int32)
+    if total % 2:
+        res[:, 100] = -(1 << 19)
+    order = np.array([0, 3], np.int64)
+    for max_param in (14, 30):
+        _check_rice(host, res, order, max_rice_order=0, max_param=max_param)
+
+
+def _sweep(s, psz, max_param):
+    """The plain version's k-sweep of rice_estimate, per node, in numpy."""
+    half = np.floor_divide(psz, 2)
+    lhs = np.maximum(s - half, 0)
+    best_bc, best_k = psz + lhs, np.zeros_like(s)
+    for k in range(1, max_param.max() + 2):
+        bc = psz * (k + 1) + (lhs >> k)
+        smaller = (bc < best_bc) & (k <= max_param + 1)
+        best_k, best_bc = np.where(smaller, k, best_k), np.where(smaller, bc, best_bc)
+    best_bc = np.where(best_k == max_param + 1, psz * (max_param + 1), best_bc)
+    under = (s < half) & (s != 0)
+    best_k, best_bc = np.where(under, 0, best_k), np.where(under, psz - half + s, best_bc)
+    zero = s == 0
+    return np.where(zero, max_param + 1, best_k), np.where(zero, 5, best_bc)
+
+
+def test_rice_node_closed_form_equals_the_sweep(host, rng):
+    """zf_rice_node's closed form (no sweep) == the plain k-sweep's first
+    minimum with its three fixes: sums from 0 to 2^48 on both sides of every
+    power of two and of psz * 2^k, sizes from -40 to 65535, params 0-30."""
+    n = 200_000
+    psz = np.concatenate([rng.integers(-40, 65536, n // 2), rng.integers(-2, 40, n // 2)])
+    e = rng.integers(0, 48, n)
+    s = np.concatenate([rng.integers(0, 1 << 48, n // 4) >> rng.integers(0, 48, n // 4),
+                        (np.int64(1) << e[: n // 4]) + rng.integers(-2, 3, n // 4),
+                        np.maximum(psz[n // 2 : 3 * n // 4], 0) * (np.int64(1) << (
+                            e[n // 2 : 3 * n // 4] % 31)) + rng.integers(-3, 4, n // 4),
+                        rng.integers(0, 100, n // 4)])
+    s = np.maximum(s, 0)
+    max_param = rng.integers(0, 31, n).astype(np.int32)
+    got_k, got_bc = host.rice_node(s, psz, max_param)
+    want_k, want_bc = _sweep(s, psz, max_param.astype(np.int64))
+    np.testing.assert_array_equal(got_k, want_k)
+    np.testing.assert_array_equal(got_bc, want_bc)
+    assert np.abs(got_bc).max() < 1 << 22  # the kernel's 32-bit level sums
+
+
+@pytest.mark.parametrize("B,max_rice_order", [
+    (4096, 8), (4096, 4), (8192, 8), (256, 8), (64, 8), (1152, 8), (4608, 8), (1972, 8),
+    (65535, 8)])
+def test_partitions_against_runs(host, rng, B, max_rice_order):
+    """Top partitions of one run (4096 at order 8: 16 samples), of whole
+    runs (256 and 32 samples: a segmented sum across lanes, two tiles at
+    8192), shorter than a run (256 and 64 at order 8: one sample; 1152: 9)
+    and neither (4608: 18; 1972: 493; 65535: the whole block, 16 tiles)."""
+    planes = np.concatenate([_planes(rng, B, 16)[[1, 2, 3, 6]], _planes(rng, B, 24)[[3, 6]]])
+    _check_fixed(host, planes, wide=False, max_rice_order=max_rice_order, max_param=30,
+                 jax_too=B < 65535)
 
 
 # -- the wrappers ----------------------------------------------------------------

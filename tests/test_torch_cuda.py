@@ -519,11 +519,21 @@ def _assert_fixed_equal(planes, wide, max_rice_order, max_param):
 def test_analysis_kernel_matches_plain(rng, depth, b, max_rice_order, max_param):
     """zf_analyze_fixed == the plain order search, residual and Rice
     estimate, every field; depth 33 is the int64 side plane, from 28 on the
-    search is wide; max_rice_order 15 at B = 4096 and 32768 keeps the
-    pyramid in global memory."""
+    search is wide. max_rice_order 15 at B = 4096 and 32768 (partition
+    orders 12 and 15) is refused as the JAX package refuses it: ValueError
+    before any launch."""
+    from zigflac_tpu_torch.ops import analyze
+
     p = 2 if b >= 32768 else 11
-    _assert_fixed_equal(_analysis_planes(rng, p, b, depth), depth >= 28, max_rice_order,
-                        max_param)
+    planes = _analysis_planes(rng, p, b, depth)
+    if min(max_rice_order, (b & -b).bit_length() - 1) > 8:
+        x = torch.from_numpy(planes).cuda()
+        analyze.reset_counts()
+        with pytest.raises(ValueError, match="partition order"):
+            analyze.analyze_fixed(x, depth >= 28, max_rice_order, max_param)
+        assert (analyze.KERNEL_LAUNCHES, analyze.PLAIN_CALLS) == (0, 0)
+        return
+    _assert_fixed_equal(planes, depth >= 28, max_rice_order, max_param)
 
 
 @pytest.mark.parametrize("k", range(5))
@@ -538,10 +548,21 @@ def test_analysis_kernel_wide_disqualification(rng, k):
 
 def test_rice_kernel_matches_plain(rng):
     """zf_rice_estimate == rice_estimate for orders 0-32 (partitions shorter
-    than the order at B = 256), quiet rows and full-range residuals."""
+    than the order at B = 256), quiet rows and full-range residuals; at
+    max_rice_order 15 and B = 4096 both refuse (ValueError, no launch)."""
     from zigflac_tpu_torch.ops import analyze
 
     for b, max_rice_order in ((4096, 8), (256, 8), (4608, 6), (4096, 15)):
+        if b == 4096 and max_rice_order == 15:
+            res = torch.zeros((4, b), dtype=torch.int32, device="cuda")
+            order = torch.zeros(4, dtype=torch.int64, device="cuda")
+            analyze.reset_counts()
+            for call in (lambda: analyze.rice_estimate_planes(res, order, 15, 30),
+                         lambda: analyze.rice_estimate(res, order, b, 15, 30)):
+                with pytest.raises(ValueError, match="partition order"):
+                    call()
+            assert (analyze.RICE_KERNEL_LAUNCHES, analyze.PLAIN_CALLS) == (0, 0)
+            continue
         order = np.arange(33).repeat(2)
         res = rng.integers(-3000, 3000, (order.size, b)).astype(np.int32)
         res[np.arange(b)[None, :] < order[:, None]] = 0
@@ -554,6 +575,48 @@ def test_rice_kernel_matches_plain(rng):
             assert (analyze.RICE_KERNEL_LAUNCHES, analyze.PLAIN_CALLS) == (1, 0)
             want = analyze.rice_estimate(r, o, b, max_rice_order, max_param)
             assert all(torch.equal(g, w) for g, w in zip(got, want)), (b, max_param)
+
+
+@pytest.mark.parametrize("lim", [(1 << 23) - 1, 1 << 23])
+def test_analysis_kernel_narrow_limit(rng, lim):
+    """Planes whose largest |x| is the narrow arithmetic's limit (every warp
+    narrow) and one past it (the warps holding it go 64-bit), plain and wide
+    mode."""
+    t = np.arange(4096)
+    noise = rng.integers(-lim + 1, lim, 4096)
+    noise[700] = -lim
+    planes = np.stack([np.where(t % 2 == 0, lim, -lim), np.full(4096, -lim), noise])
+    for wide in (False, True):
+        _assert_fixed_equal(planes.astype(np.int32), wide, 8, 30)
+
+
+@pytest.mark.parametrize("b,max_rice_order", [
+    (4096, 4), (8192, 8), (256, 8), (64, 8), (1152, 8), (2304, 12), (4608, 8), (1972, 8)])
+def test_analysis_kernel_partitions_against_runs(rng, b, max_rice_order):
+    """Top partitions of one 16-sample run, of whole runs (a segmented sum
+    across lanes, across warps at 4096 / order 4, two tiles at 8192), shorter
+    than a run (256, 64, 1152, 2304 at order 8) and neither (4608, 1972);
+    max_rice_order 12 at 2304 (ctz 8) is legal."""
+    planes = np.concatenate([_analysis_planes(rng, 5, b, 16), _analysis_planes(rng, 3, b, 24)])
+    _assert_fixed_equal(planes, False, max_rice_order, 30)
+
+
+def test_encode_refuses_partition_order_above_8_before_the_card(rng):
+    """max_rice_order 12 at block 4096 (partition order 12): ValueError, as
+    the JAX package raises, and no kernel launched; at block 1152 (order 7)
+    the card's bytes equal the CPU's."""
+    from zigflac_tpu_torch.ops import analyze
+
+    wav = _wav(rng, 3 * 4096 + 100)
+    analyze.reset_counts()
+    deposit.reset_counts()
+    with pytest.raises(ValueError, match="partition order 12"):
+        zigflac_tpu_torch.encode_wav_bytes(
+            wav, config=EncoderConfig(block_size=4096, max_rice_order=12), device="cuda")
+    assert (analyze.KERNEL_LAUNCHES, deposit.KERNEL_LAUNCHES) == (0, 0)
+    cfg = EncoderConfig(block_size=1152, max_rice_order=12)
+    assert zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda") == \
+        zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
 
 
 def test_crc_kernel_matches_plain(rng):

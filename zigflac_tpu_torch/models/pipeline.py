@@ -28,7 +28,7 @@ import torch
 
 from ..metadata import StreamInfo
 from ..native import assemble_frames, assemble_ranges
-from ..ops.analyze import lpc_order_of, plan_frames
+from ..ops.analyze import check_partition_order, lpc_order_of, plan_frames
 from ..ops.bitpack import ALIGN_W, compact_stream_aligned, max_frame_words, pack_frames
 from ..ops.crc16 import crc16_frames
 from ..ops.header import HeaderStatic, header_static
@@ -277,7 +277,10 @@ class DevicePipeline:
         """Dispatch one batch of full frames ``[n<=bs, C, B]`` at tier-0
         capacity. Returns a pending handle for ``collect_batch``. The batch
         is padded to a power of two (on a mesh, then to a multiple of its
-        size) by repeating its last frame."""
+        size) by repeating its last frame. Raises ValueError, before any
+        device work, for a block whose partition order the analysis cannot
+        hold (``check_partition_order``)."""
+        check_partition_order(chunk.shape[-1], self.config.max_rice_order)
         nreal = chunk.shape[0]
         ndev = self._mesh.size if self._mesh is not None else 1
         bucket = min(self.batch_size, _next_pow2(nreal))
@@ -299,7 +302,8 @@ class DevicePipeline:
 
     def dispatch_tail(self, tail: np.ndarray, frame_number: int, info) -> dict:
         """Dispatch a ragged final frame ``[C, rem]`` at its exact block
-        size, numbered ``frame_number``."""
+        size, numbered ``frame_number``; refused as ``dispatch_batch``."""
+        check_partition_order(tail.shape[-1], self.config.max_rice_order)
         rec = {"chunk": tail[None, ...], "nreal": 1,
                "fns": np.array([frame_number], np.int64), "rate": info.sample_rate}
         rec["out"] = self._run_compact(rec, 0)

@@ -95,12 +95,10 @@ def library() -> ctypes.CDLL:
     ]
     lib.zf_synthesize.restype = ctypes.c_int
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.zf_analyze_fixed.argtypes = [ptr, i32, i64, i64, i32, i64, i64] + [ptr] * 10
+    lib.zf_analyze_fixed.argtypes = [ptr, i32, i64, i64, i32, i64, i64] + [ptr] * 9
     lib.zf_analyze_fixed.restype = ctypes.c_int
-    lib.zf_rice_estimate.argtypes = [ptr, ptr, i64, i64, i64, i64] + [ptr] * 6
+    lib.zf_rice_estimate.argtypes = [ptr, ptr, i64, i64, i64, i64] + [ptr] * 5
     lib.zf_rice_estimate.restype = ctypes.c_int
-    lib.zf_shared_max_po.argtypes = []
-    lib.zf_shared_max_po.restype = ctypes.c_int64
     lib.zf_crc16_frames.argtypes = [ptr, ptr, i64, i64, i32, ptr, ptr]
     lib.zf_crc16_frames.restype = ctypes.c_int
     lib.zf_error_string.argtypes = [ctypes.c_int]

@@ -46,6 +46,8 @@ from . import lpc
 I64_MAX = torch.iinfo(torch.int64).max
 # params columns of a plane (the partitions of order 8)
 PARAM_COLS = 256
+# the largest partition order the params hold
+MAX_PART_ORDER = 8
 
 KERNEL_LAUNCHES = 0
 RICE_KERNEL_LAUNCHES = 0
@@ -113,6 +115,18 @@ def _ilog2(v: int) -> int:
 
 def _ctz(v: int) -> int:
     return (v & -v).bit_length() - 1
+
+
+def check_partition_order(block_size: int, max_rice_order: int) -> None:
+    """Refuse a block whose top partition order, min(max_rice_order,
+    ctz(block_size)), exceeds MAX_PART_ORDER: its params do not fit the 256
+    columns. The JAX package raises ValueError on the same condition (its
+    params pad goes negative), so the port raises it too, before any work."""
+    po_top = min(max_rice_order, _ctz(block_size))
+    if po_top > MAX_PART_ORDER:
+        raise ValueError(
+            f"partition order {po_top} (max_rice_order {max_rice_order}, block size "
+            f"{block_size}) exceeds {MAX_PART_ORDER}: the params hold {PARAM_COLS} partitions")
 
 
 def bit_length(x: torch.Tensor, bits: int = 32) -> torch.Tensor:
@@ -236,6 +250,7 @@ def rice_estimate(
     costs ``psz*param``, and partition-order ties keep the larger order.
     """
     B = block_size
+    check_partition_order(B, max_rice_order)
     po_top = min(max_rice_order, _ctz(B))
     dev = residuals.device
     sums = rice_sums_pyramid(zigzag_u32(residuals), po_top)
@@ -313,6 +328,7 @@ def analyze_fixed_plain(
     planes: torch.Tensor, wide: bool, max_rice_order: int, max_param: int
 ) -> FixedAnalysis:
     """``analyze_fixed`` as plain torch ops."""
+    check_partition_order(planes.shape[-1], max_rice_order)
     order, ok = best_fixed_order(planes, wide)
     residuals = residuals_for_order(planes, order)
     bits, method, part_order, params = rice_estimate(
@@ -329,6 +345,7 @@ def _check_rice_args(B: int, max_rice_order: int, max_param: int) -> None:
         raise ValueError(f"max_rice_order must be 0..15, got {max_rice_order}")
     if not 0 <= max_param <= 30:
         raise ValueError(f"max_param must be 0..30, got {max_param}")
+    check_partition_order(B, max_rice_order)
 
 
 def _check_tensor(name: str, t: torch.Tensor, dtypes, device) -> None:
@@ -346,21 +363,16 @@ def _launch(lib, fn, name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {lib.zf_error_string(err).decode()}")
 
 
-def _rice_outputs(batch_shape, B: int, max_rice_order: int, lib, dev):
-    """(bits, method, part_order, params, scratch): the Rice outputs of a
-    launch, and the global-memory pyramid a plane when the kernel cannot keep
-    it in shared memory (else None)."""
+def _int64_outputs(batch_shape, scalars: int, dev):
+    """``scalars`` int64 tensors of ``batch_shape`` and the params
+    ``batch_shape + (256,)``, contiguous pieces of one allocation (a launch's
+    host time is mostly its allocations)."""
     p = 1
     for d in batch_shape:
         p *= d
-    i64 = dict(dtype=torch.int64, device=dev)
-    out = [torch.empty(batch_shape, **i64) for _ in range(3)]
-    out.append(torch.empty(batch_shape + (PARAM_COLS,), **i64))
-    po_top = min(max_rice_order, _ctz(B))
-    scratch = None
-    if po_top > lib.zf_shared_max_po():
-        scratch = torch.empty((p, (2 << po_top) - 1), **i64)
-    return (*out, scratch)
+    flat = torch.empty(p * (scalars + PARAM_COLS), dtype=torch.int64, device=dev)
+    out = [flat[i * p:(i + 1) * p].view(batch_shape) for i in range(scalars)]
+    return (*out, flat[scalars * p:].view(batch_shape + (PARAM_COLS,)))
 
 
 def analyze_fixed(
@@ -385,19 +397,15 @@ def analyze_fixed(
     lib = library()
     dev = planes.device
     batch_shape = tuple(planes.shape[:-1])
-    order = torch.empty(batch_shape, dtype=torch.int64, device=dev)
-    ok = torch.empty(batch_shape, dtype=torch.bool, device=dev)
-    all_eq = torch.empty(batch_shape, dtype=torch.bool, device=dev)
+    order, bits, method, part_order, params = _int64_outputs(batch_shape, 4, dev)
+    ok, all_eq = torch.empty((2,) + batch_shape, dtype=torch.bool, device=dev)
     residuals = torch.empty(planes.shape, dtype=torch.int32, device=dev)
-    bits, method, part_order, params, scratch = _rice_outputs(
-        batch_shape, B, max_rice_order, lib, dev)
     with torch.cuda.device(dev):
         _launch(lib, lib.zf_analyze_fixed, "analysis",
                 planes.data_ptr(), planes.dtype == torch.int64, planes.numel() // B, B,
                 bool(wide), max_rice_order, max_param, order.data_ptr(), ok.data_ptr(),
                 residuals.data_ptr(), bits.data_ptr(), method.data_ptr(),
-                part_order.data_ptr(), params.data_ptr(), all_eq.data_ptr(),
-                scratch.data_ptr() if scratch is not None else None)
+                part_order.data_ptr(), params.data_ptr(), all_eq.data_ptr())
     KERNEL_LAUNCHES += 1
     return FixedAnalysis(order, ok, residuals, bits, method, part_order, params, all_eq)
 
@@ -425,13 +433,12 @@ def rice_estimate_planes(
     from ._build import library
 
     lib = library()
-    bits, method, part_order, params, scratch = _rice_outputs(
-        tuple(order.shape), B, max_rice_order, lib, residuals.device)
+    bits, method, part_order, params = _int64_outputs(tuple(order.shape), 3, residuals.device)
     with torch.cuda.device(residuals.device):
         _launch(lib, lib.zf_rice_estimate, "Rice",
                 residuals.data_ptr(), order.data_ptr(), order.numel(), B, max_rice_order,
                 max_param, bits.data_ptr(), method.data_ptr(), part_order.data_ptr(),
-                params.data_ptr(), scratch.data_ptr() if scratch is not None else None)
+                params.data_ptr())
     RICE_KERNEL_LAUNCHES += 1
     return bits, method, part_order, params
 
