@@ -19,7 +19,10 @@ Phases:
      global-memory branch). Words must be equal; each is timed with CUDA
      events, and config 1's batch, timed again in turns with the plain
      version, gives the kernel's times and bound. 2-crc: the CRC-16 kernel
-     against its plain version (crc16_words + deposit_crc16) on the same
+     against its plain version (crc16_words + deposit_crc16) on watch cases
+     (lengths 0-20, every residue mod 4 and 16, about a round of a frame's
+     lanes and about the row's end, frames over the row, rows of one to
+     three words and rows that do not start on 16 bytes) and on the same
      four batches' words, the 73 KB exact-tier rows among them, in both
      write modes, and against crc.crc16 of three frames' bytes each; config
      1's batch timed in turns with the plain version, beside its bound.
@@ -34,7 +37,8 @@ Phases:
      of |x| and one past it; partition order 15 refused (ValueError, as the
      JAX package) by both kernels' wrappers and by an encode at
      max_rice_order 12, before any launch; zf_rice_estimate on partitions
-     about half full and all zero and on orders 0-32; then the planes of one
+     about half full and all zero, on orders 0-32, on blocks not a multiple
+     of 4 and on rows that do not start on 16 bytes; then the planes of one
      batch each of config 1, config 2, config 3 and the 32-bit input as
      analyze_planes hands them over, and config 3's LPC candidate through
      the Rice entry; config 1's batch and the LPC batch timed in turns with
@@ -660,8 +664,9 @@ def phase2_analysis(env, batches, lpc_batch):
     of 1 to 65535 samples, partition orders 0, 4 and 8 and params up to 14
     and 30, max_rice_order 12 at B = 2304, planes at the narrow arithmetic's
     limit and one past it; partition order 15 refused before any launch;
-    zf_rice_estimate on partitions about half full and all zero and on
-    orders 0-32; then the real planes of one batch each of ``batches``
+    zf_rice_estimate on partitions about half full and all zero, on
+    orders 0-32, on blocks not a multiple of 4 and on rows that do not start
+    on 16 bytes; then the real planes of one batch each of ``batches``
     (name -> [(planes, wide, max_param)], the calls analyze_planes makes)
     and the LPC candidate's residuals of ``lpc_batch`` (residuals, orders).
     Config 1's batch and the LPC batch are timed in turns with the plain
@@ -761,6 +766,14 @@ def phase2_analysis(env, batches, lpc_batch):
         for max_param in (14, 30):
             rice(res, orders, 8, max_param)
     rice(_quiet_residuals(rng, 66, 2304, orders), orders, 12, 30)
+    # B not a multiple of 4 (the runs' word loads), partitions shorter than
+    # a run (66 at order 1), several tiles (4098), rows off 16 bytes
+    for b in (66, 1972, 4098):
+        res = rng.integers(-3000, 3000, (orders.size, b)).astype(np.int32)
+        res[np.arange(b)[None, :] < orders[:, None]] = 0
+        rice(res, orders, 8, 30)
+    flat = rng.integers(-3000, 3000, orders.size * BLOCK + 1).astype(np.int32)
+    rice(torch.from_numpy(flat).to(dev)[1:].view(orders.size, BLOCK), orders, 8, 14)
 
     out = {}
     for name, calls in batches.items():
@@ -1576,13 +1589,14 @@ def main() -> int:
 
     crc_err = 0
 
-    def compare_crc(words, byte_len):
-        """CRC kernel == plain (it ORs into ``words`` in place: give it a
-        copy), and == crc.crc16 of the bytes of a few frames."""
+    def compare_crc(words, byte_len, copy=None):
+        """CRC kernel == plain (it ORs into ``words`` in place: give it
+        ``copy``, equal to ``words``, or a clone), and == crc.crc16 of the
+        bytes of a few frames."""
         nonlocal crc_err
         want = crc16.crc16_frames_plain(words, byte_len)
         got_ro, _ = crc16.crc16_frames(words, byte_len, write=False)
-        got = crc16.crc16_frames(words.clone(), byte_len)
+        got = crc16.crc16_frames(words.clone() if copy is None else copy, byte_len)
         torch.cuda.synchronize()
         for g, w in ((got_ro, want[0]), *zip(got, want)):
             if not torch.equal(g, w):
@@ -1594,6 +1608,21 @@ def main() -> int:
             n = int(byte_len[f])
             if n <= 4 * rows.shape[1] and crc16_bytes(rows[f].tobytes()[:n]) != int(got[0][f]):
                 raise AssertionError(f"CRC kernel: frame {f} differs from crc.crc16")
+
+    # the CRC kernel's watch cases: lengths 0-20 (every residue mod 4 and
+    # 16), about a round of a frame's lanes and about the row's end, frames
+    # over the row, rows of one to three words, rows off 16 bytes (the
+    # kernel's word branch, written in place there too)
+    for w, offset in ((1, 0), (2, 0), (3, 0), (37, 0), (5504, 0), (5504, 1), (18432, 3)):
+        lens = np.array(sorted({*range(21), 1023, 1024, 1025, 4095, 4096, 4097, 4 * w - 1,
+                                4 * w, 4 * w + 9}))
+        be = rng.integers(0, 256, (lens.size, 4 * w), dtype=np.uint8)
+        be[np.arange(4 * w)[None, :] >= lens[:, None]] = 0
+        flat = np.concatenate([np.zeros(offset, np.int32),
+                               be.view(">i4").astype(np.int32).ravel()])
+        rows, copy = (torch.from_numpy(flat).to(dev)[offset:].view(lens.size, w) for _ in "ab")
+        compare_crc(rows, torch.from_numpy(lens).to(dev), copy)
+    crc_watch = crc_err == 0
 
     streams, crc_streams = {}, {}
     for name, wav, cfg, tier in (("config1", wav1, cfg1, 0), ("config3", wav3, cfg_lpc, 0),
@@ -1652,7 +1681,8 @@ def main() -> int:
     c_kernel.append(cuda_ms(torch, run_kernel))
     c_plain.append(cuda_ms(torch, run_plain, reps=5))
     crc_b = crc_bound(byte_len.cpu().numpy(), mw)
-    _log("2-crc", streams=crc_streams, max_abs_err=crc_err, kernel_ms=c_kernel,
+    _log("2-crc", watch_cases_equal=crc_watch, streams=crc_streams, max_abs_err=crc_err,
+         kernel_ms=c_kernel,
          plain_ms=c_plain, bound_bytes=crc_b[0], bound_ms=crc_b[1], bound_by=crc_b[2],
          bound_ops_ms=crc_b[3])
     crc_entry = {

@@ -40,9 +40,10 @@ I64_MAX = (1 << 63) - 1
 # analyze_steps.cuh helpers: each warp's runs of kZfRun samples with their
 # predecessors, the warp's narrow/wide choice, each thread's run in pass 1
 # and pass 2 (the split sums or the pieces of a run), then the pyramid and
-# every node's Rice param. The kernel sums a warp's lanes of one partition or
-# one level before it adds them; the sums are the same. stats counts, per
-# call: warps in the narrow arithmetic, all warps.
+# every node's Rice param; the Rice entry's runs of residuals with their
+# split sums or pieces, without the order search. The kernel sums a warp's
+# lanes of one partition or one level before it adds them; the sums are the
+# same. stats counts, per call: warps in the narrow arithmetic, all warps.
 HOST_HARNESS = r"""
 #include <algorithm>
 #include <vector>
@@ -133,20 +134,10 @@ void pass1_run(const T (&v)[kZfRun], const T (&p)[4], int start, int b, bool nar
   }
 }
 
-template <typename T>
-void pass2_run(const T (&v)[kZfRun], const T (&p)[4], int start, int b, bool narrow, int order,
-               int32_t* res, uint64_t* top, int psz) {
-  int32_t r[kZfRun];
-  const bool masked = start < 4 || start + kZfRun > b;
-  if (narrow) {
-    if (masked) zf_run_residual<int32_t, kZfRun, true>(v, p, start, b, order, r);
-    else zf_run_residual<int32_t, kZfRun, false>(v, p, start, b, order, r);
-  } else {
-    if (masked) zf_run_residual<uint64_t, kZfRun, true>(v, p, start, b, order, r);
-    else zf_run_residual<uint64_t, kZfRun, false>(v, p, start, b, order, r);
-  }
-  if (start >= b) return;
-  for (int q = 0; q < kZfRun && start + q < b; ++q) res[start + q] = r[q];
+// A run's zigzag sums into the top-level partitions: split at the
+// partition boundary where partitions hold at least a run (32-bit sums for
+// a narrow warp), else piece by piece.
+void add_run_sums(const int32_t (&r)[kZfRun], int start, bool narrow, uint64_t* top, int psz) {
   if (psz >= kZfRun) {
     const int key = start / psz;
     const int split = std::min((key + 1) * psz - start, kZfRun);
@@ -166,6 +157,23 @@ void pass2_run(const T (&v)[kZfRun], const T (&p)[4], int start, int b, bool nar
       if (s) top[key] += s;
     });
   }
+}
+
+template <typename T>
+void pass2_run(const T (&v)[kZfRun], const T (&p)[4], int start, int b, bool narrow, int order,
+               int32_t* res, uint64_t* top, int psz) {
+  int32_t r[kZfRun];
+  const bool masked = start < 4 || start + kZfRun > b;
+  if (narrow) {
+    if (masked) zf_run_residual<int32_t, kZfRun, true>(v, p, start, b, order, r);
+    else zf_run_residual<int32_t, kZfRun, false>(v, p, start, b, order, r);
+  } else {
+    if (masked) zf_run_residual<uint64_t, kZfRun, true>(v, p, start, b, order, r);
+    else zf_run_residual<uint64_t, kZfRun, false>(v, p, start, b, order, r);
+  }
+  if (start >= b) return;
+  for (int q = 0; q < kZfRun && start + q < b; ++q) res[start + q] = r[q];
+  add_run_sums(r, start, narrow, top, psz);
 }
 
 template <typename T>
@@ -235,11 +243,21 @@ extern "C" void zf_rice_estimate_host(const int32_t* residuals, const int64_t* o
                                       int64_t* bits, int64_t* method, int64_t* part_order,
                                       int64_t* params) {
   const int po_top = zf_po_top(b, (int)max_rice_order);
+  const int ntiles = (int)((b + kTile - 1) / kTile), psz = (int)(b >> po_top);
   std::vector<uint64_t> pyr(zf_nodes(po_top));
   for (int64_t q = 0; q < p; ++q) {
     std::fill(pyr.begin(), pyr.end(), 0);
     uint64_t* top = pyr.data() + zf_level_offset(po_top);
-    for (int64_t i = 0; i < b; ++i) top[i / (b >> po_top)] += zf_zigzag(residuals[q * b + i]);
+    const int32_t* x = residuals + q * b;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      for (int t = 0; t < kThreads; ++t) {
+        const int start = tile * kTile + t * kZfRun;
+        if (start >= b) continue;
+        int32_t r[kZfRun];
+        for (int i = 0; i < kZfRun; ++i) r[i] = start + i < b ? x[start + i] : 0;
+        add_run_sums(r, start, false, top, psz);
+      }
+    }
     rice_sweep(pyr, (int)b, po_top, order[q], (int)max_param, bits + q, method + q,
                part_order + q, params + q * kZfParamCols);
   }
@@ -499,6 +517,29 @@ def test_rice_lpc_orders(host, rng, B):
     _check_rice(host, res, order)
 
 
+@pytest.mark.parametrize("B,max_rice_order", [
+    (1, 8), (3, 8), (5, 8), (18, 8), (66, 8), (100, 8), (1152, 8), (1972, 8), (4098, 8),
+    (4608, 8), (8192, 8), (65535, 8), (4096, 0), (1024, 3)])
+def test_rice_block_sizes(host, rng, B, max_rice_order):
+    """The Rice entry's runs against every partition shape: B not a multiple
+    of 4 or 16 (3, 5, 18, 66, 1972, 4098, 65535), partitions shorter than a
+    run (66 and 100 at order 1 and 2: 33 and 25; 1152 at order 7: 9),
+    partitions of whole runs across lanes (8192 at order 8: 32), one
+    partition for the whole block (max_rice_order 0), more than one tile
+    (4098, 4608, 8192, 65535); orders 0-32 with their warmup slots holding
+    residuals, which every sum takes in (plain version only), then zeroed
+    as the encoder leaves them (the JAX package too)."""
+    order = rng.integers(0, 33, 12 if B < 65535 else 3)
+    order[:3] = (0, 32, min(B, 32))
+    res = rng.integers(-40000, 40000, (order.size, B)).astype(np.int32)
+    res[1::3] >>= 11
+    res[2::3] >>= 15
+    _check_rice(host, res, order, max_rice_order=max_rice_order, jax_too=False)
+    res[np.arange(B)[None, :] < order[:, None]] = 0
+    _check_rice(host, res, order, max_rice_order=max_rice_order,
+                jax_too=4 <= B < 65535)
+
+
 def test_rice_wide_values(host, rng):
     """Residuals over the whole int32 range (zigzags up to 2^32 - 1). With
     the warmup slots not zeroed (no caller passes such rows; the JAX
@@ -554,6 +595,21 @@ def test_encode_refuses_partition_order_above_8(rng):
     with pytest.raises(ValueError, match="partition order 12"):
         zigflac_tpu_torch.encode_wav_bytes(
             wav, config=EncoderConfig(block_size=4096, max_rice_order=12), device="cpu")
+    assert tan.PLAIN_CALLS == 0
+
+
+def test_encode_refuses_a_tail_of_partition_order_above_8(rng):
+    """Block 2304 (ctz 8: legal at max_rice_order 12) with a 2048-sample
+    tail (ctz 11: partition order 11): the JAX package's device encode
+    raises ValueError, and the port's raises it too, naming the tail's
+    block size, before any analysis runs."""
+    wav = _f5_wav(rng, 2 * 2304 + 2048)
+    with pytest.raises(ValueError):
+        zigflac_tpu.encode_wav_bytes(wav, config=JaxConfig(block_size=2304, max_rice_order=12))
+    tan.reset_counts()
+    with pytest.raises(ValueError, match="block size 2048"):
+        zigflac_tpu_torch.encode_wav_bytes(
+            wav, config=EncoderConfig(block_size=2304, max_rice_order=12), device="cpu")
     assert tan.PLAIN_CALLS == 0
 
 
@@ -735,12 +791,9 @@ def test_analyze_planes_through_the_harness_equals_jax(host, rng, monkeypatch, d
     assert launches == {"fixed": 1, "rice": int("lpc_order" in fields)}
 
 
-CORPUS_CASES = ("tonal_16_2", "noise_32_2", "lpc_speech_16_2", "tonal_16_8", "tiny_tail_16_2")
-
-
-@pytest.mark.parametrize("name", CORPUS_CASES)
+@pytest.mark.parametrize("name", [c["name"] for c in CASES])
 def test_corpus_streams_through_the_harness(host, monkeypatch, name):
-    """Whole pinned corpus streams (the JAX package's bytes) with the
+    """Every pinned corpus stream (the JAX package's bytes) with the
     analysis harness in the kernels' place."""
     case = next(c for c in CASES if c["name"] == name)
     launches = _patch_kernels(monkeypatch, host)

@@ -1,12 +1,14 @@
 """The frame CRC kernel's arithmetic (zigflac_tpu_torch/csrc/crc16_steps.cuh)
 built for the host with g++, behind a loop that runs csrc/crc16.cu's block
-(256 threads, one contiguous byte run each, the terms XORed, thread 0's
-deposit) one thread after another. It is held against the port's plain
+(kZfCrcLanes lanes a frame, each folding its 16-byte chunks, the lanes'
+terms XORed, the first lane's deposit) one lane after another, through the
+int4 branch and the word branch. It is held against the port's plain
 version (crc16_words + bitpack.deposit_crc16), the JAX package's
 (ops/crc16.crc16_words, ops/bitpack.deposit_crc16) and crc.crc16 of the
-frame's bytes, on numpy inputs made from a seed and on real frame rows; then
-the wrapper's routing and checks, and whole encodes with the harness in the
-kernel's place.
+frame's bytes, on numpy inputs made from a seed and on real frame rows; its
+compile-time tables against square and multiply and crc.xpow_shift_table;
+then the wrapper's routing and checks, and whole encodes with the harness
+in the kernel's place.
 
 Tolerance: exact equality of CRCs and words."""
 
@@ -37,27 +39,36 @@ from zigflac_tpu_torch.wav import write_wav
 
 CSRC = Path(__file__).resolve().parent.parent / "zigflac_tpu_torch" / "csrc"
 
-# csrc/crc16.cu's block with its 256 threads run in turn.
+# csrc/crc16.cu's block with its lanes run in turn. vec: the kernel's int4
+# branch where the rows allow it (as zf_crc16_frames decides), else words.
 HOST_HARNESS = r"""
+#include <string.h>
 #include "crc16_steps.cuh"
 
+static constexpr ZfCrcTables kTables = zf_crc16_make_tables();
+static constexpr ZfCrcShifts kShifts = zf_crc16_make_shifts();
+
 extern "C" void zf_crc16_frames_host(uint32_t* words, const int64_t* byte_len, int64_t n,
-                                     int64_t w, int write, int64_t* crcs) {
-  constexpr int kThreads = 256;
-  uint16_t table[256];
-  for (uint32_t b = 0; b < 256; ++b) table[b] = (uint16_t)zf_crc16_table_entry(b);
+                                     int64_t w, int write, int vec_ok, int64_t* crcs) {
+  const bool vec = vec_ok && (uintptr_t)words % 16 == 0 && w % 4 == 0;
   for (int64_t f = 0; f < n; ++f) {
     uint32_t* row = words + f * w;
     const int64_t nb = byte_len[f];
-    const int64_t len = nb < 0 ? 0 : nb < 4 * w ? nb : 4 * w;
-    const int64_t run = zf_crc16_run_bytes(len, kThreads);
-    uint32_t crc = 0;
-    for (int t = 0; t < kThreads; ++t) crc ^= zf_crc16_term(row, len, run, t, table);
+    uint32_t crc = 0, old[2] = {0, 0};
+    for (int lane = 0; lane < kZfCrcLanes; ++lane)
+      crc ^= zf_crc16_lane(row, w, vec, nb, lane, kTables, kShifts.e, [&] {
+        if (write && lane == 0) zf_crc16_deposit_read(row, w, nb, old);
+      });
     crcs[f] = crc;
-    if (write) zf_crc16_deposit(row, w, nb, crc);
+    if (write) zf_crc16_deposit_write(row, w, nb, crc, old);
   }
 }
 
+extern "C" int zf_crc16_lanes_host() { return kZfCrcLanes; }
+extern "C" void zf_crc16_tables_host(uint16_t* tables, uint16_t* shifts) {
+  memcpy(tables, &kTables, sizeof kTables);
+  memcpy(shifts, &kShifts, sizeof kShifts);
+}
 extern "C" uint32_t zf_xpow8_host(uint64_t e) { return zf_xpow8(e); }
 extern "C" uint32_t zf_mulmod_host(uint32_t a, uint32_t b) { return zf_gf2_mulmod(a, b); }
 """
@@ -66,8 +77,9 @@ extern "C" uint32_t zf_mulmod_host(uint32_t a, uint32_t b) { return zf_gf2_mulmo
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     """crc16_steps.cuh built for the host with g++ behind the kernel's block
-    loop: host(words int32 [N, W], byte_len [N], write) -> (crcs int64 [N],
-    words), the words a new array."""
+    loop: host(words int32 [N, W], byte_len [N], write, vec) -> (crcs int64
+    [N], words), the words a new array (16-byte aligned, so vec takes the
+    int4 branch where W % 4 == 0)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the kernel's arithmetic cannot be built on the host")
@@ -75,24 +87,27 @@ def host(tmp_path_factory):
     (d / "host.cpp").write_text(HOST_HARNESS)
     so = d / "host.so"
     subprocess.run(
-        [gxx, "-std=c++17", "-O1", "-Wall", "-Werror", "-shared", "-fPIC", "-I", str(CSRC),
-         "-o", str(so), str(d / "host.cpp")],
+        [gxx, "-std=c++17", "-O1", "-Wall", "-Werror", "-Wno-unknown-pragmas", "-shared",
+         "-fPIC", "-I", str(CSRC), "-o", str(so), str(d / "host.cpp")],
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(so))
     lib.zf_crc16_frames_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                                         ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+                                         ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.zf_crc16_tables_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.zf_xpow8_host.argtypes = [ctypes.c_uint64]
     lib.zf_xpow8_host.restype = ctypes.c_uint32
     lib.zf_mulmod_host.argtypes = [ctypes.c_uint32, ctypes.c_uint32]
     lib.zf_mulmod_host.restype = ctypes.c_uint32
 
-    def run(words, byte_len, write=True):
+    def run(words, byte_len, write=True, vec=True):
         w = np.array(words, np.int32, order="C", copy=True)
+        assert w.ctypes.data % 16 == 0
         bl = np.ascontiguousarray(byte_len, np.int64)
         crcs = np.empty(w.shape[0], np.int64)
         lib.zf_crc16_frames_host(w.ctypes.data, bl.ctypes.data, w.shape[0], w.shape[1],
-                                 bool(write), crcs.ctypes.data)
+                                 bool(write), bool(vec), crcs.ctypes.data)
         return crcs, w
 
     run.lib = lib
@@ -116,6 +131,10 @@ def _check(host, words, byte_len):
     crcs_ro, same = host(words, byte_len, write=False)
     np.testing.assert_array_equal(crcs_ro, crcs)
     np.testing.assert_array_equal(same, words)
+    # the word branch (rows not on 16 bytes, or W % 4 != 0) gives the same
+    crcs_w, out_w = host(words, byte_len, vec=False)
+    np.testing.assert_array_equal(crcs_w, crcs)
+    np.testing.assert_array_equal(out_w, out)
     return crcs
 
 
@@ -133,12 +152,16 @@ def _frame_bytes(words, n):
     return words.astype(">i4").tobytes()[:n]
 
 
-@pytest.mark.parametrize("w", [1, 2, 8, 37, 300])
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 37, 300, 3100])
 def test_random_rows(host, rng, w):
-    """Lengths 0-5, every length about a run's end, and the last bytes of
-    the row: the CRC bytes both inside, one past the row, both past it."""
-    lens = sorted({n for n in (0, 1, 2, 3, 4, 5, 255, 256, 257, 1023, 1024, 1025,
-                               4 * w - 3, 4 * w - 2, 4 * w - 1, 4 * w) if 0 <= n <= 4 * w})
+    """Lengths 0-20 (every residue mod 4 and mod 16, and 0-3), every length
+    about a round of the frame's lanes (16 x 64 bytes), a lane's batch of
+    loads (four rounds) and their doubles, and the last 17 bytes of the
+    row: the CRC bytes both inside, one past the row, both past it. W = 1,
+    2, 3, 37 and 3100 take the word branch, 8 and 300 the int4 branch too."""
+    ends = [1024 * k + d for k in (1, 2, 4, 8) for d in (-1, 0, 1, 15, 16, 17)]
+    lens = sorted({n for n in (*range(21), 255, 256, 257, *ends, *range(4 * w - 16, 4 * w + 1))
+                   if 0 <= n <= 4 * w})
     words, byte_len = _rows(rng, lens, w)
     crcs = _check(host, words, byte_len)
     for i, n in enumerate(lens):
@@ -156,6 +179,25 @@ def test_frames_over_the_row(host, rng):
     assert (host(words, byte_len)[1] == words).all()
 
 
+def test_negative_lengths(host, rng):
+    """A negative byte_len counts as 0: the CRC of no bytes, whatever the
+    row holds, and nothing written; on rows zero past byte_len (as the
+    deposit leaves them, and as the plain version assumes) the plain
+    version's."""
+    byte_len = np.array([-1, -2, -9], np.int64)
+    words = rng.integers(-(1 << 31), 1 << 31, (3, 8)).astype(np.int32)
+    zeros = np.zeros_like(words)
+    for write in (True, False):
+        for vec in (True, False):
+            crcs, out = host(words, byte_len, write, vec)
+            assert (crcs == 0).all() and (out == words).all()
+            crcs, out = host(zeros, byte_len, write, vec)
+            want = tcrc16.crc16_frames_plain(torch.from_numpy(zeros), torch.from_numpy(byte_len),
+                                             write)
+            np.testing.assert_array_equal(crcs, want[0].numpy())
+            np.testing.assert_array_equal(out, want[1].numpy())
+
+
 def test_gf2_powers_equal_the_tables(host):
     lib = host.lib
     for e in (0, 1, 2, 3, 7, 255, 256, 5503, 22016, 73_727, 1 << 20, (1 << 33) + 5):
@@ -165,6 +207,42 @@ def test_gf2_powers_equal_the_tables(host):
         assert lib.zf_mulmod_host(int(a), int(b)) == jcrc.gf2_mulmod16(int(a), int(b))
     table = [jcrc.CRC16_TABLE[b] for b in range(256)]
     assert all(jcrc.crc16(bytes([b])) == table[b] for b in range(256))
+
+
+def test_tables_equal_the_powers(host):
+    """Each compile-time table against square and multiply (zf_xpow8,
+    crc.xpow_mod) and crc.xpow_shift_table: a chunk table's entry for one
+    bit is x^(its degree in the chunk + 16), every entry the XOR of its
+    bits'; the Horner table's x^(shift + 128 G); the shift table's
+    x^(8 (k - 15)), its negative powers inverting the positive ones."""
+    lib = host.lib
+    lanes = lib.zf_crc16_lanes_host()
+    tables = np.zeros((4 * 6 + 3) * 64, np.uint16)
+    shifts = np.zeros(16 * lanes, np.uint16)
+    lib.zf_crc16_tables_host(tables.ctypes.data, shifts.ctypes.data)
+    chunk, horner = tables[:4 * 6 * 64].reshape(4, 6, 64), tables[4 * 6 * 64:].reshape(3, 64)
+    word_fields = [(26, 6), (20, 6), (14, 6), (8, 6), (2, 6), (0, 2)]
+    shift_table = jcrc.xpow_shift_table(16)
+    v = np.arange(64)
+    for m in range(4):
+        for f, (shift, width) in enumerate(word_fields):
+            for b in range(width):
+                e = 32 * (3 - m) + shift + b + 16
+                assert chunk[m, f, 1 << b] == jcrc.xpow_mod(e)
+                if (e - 16) % 8 == 0:
+                    assert chunk[m, f, 1 << b] == shift_table[(e - 16) // 8]
+            bits = [chunk[m, f, 1 << b] if b < width else 0 for b in range(6)]
+            want = np.bitwise_xor.reduce([np.where((v >> b) & 1, bits[b], 0) for b in range(6)])
+            np.testing.assert_array_equal(chunk[m, f, :1 << width], want[:1 << width])
+    for f, (shift, width) in enumerate([(10, 6), (4, 6), (0, 4)]):
+        for b in range(width):
+            assert horner[f, 1 << b] == jcrc.xpow_mod(shift + b + 128 * lanes)
+    for k in range(16 * lanes):
+        if k >= 15:
+            assert shifts[k] == lib.zf_xpow8_host(k - 15)
+        else:
+            assert lib.zf_mulmod_host(int(shifts[k]), lib.zf_xpow8_host(15 - k)) == 1
+    assert (shifts[17:17 + 16] == shift_table).all()
 
 
 def _packed_rows(rng, depth, B, n, tier_ratio, kind="mixed"):
@@ -243,9 +321,9 @@ def _patch_kernel(monkeypatch, host):
     return calls
 
 
-@pytest.mark.parametrize("name", ("tonal_16_2", "noise_32_2", "lpc_tonal_24_2", "tonal_16_1"))
+@pytest.mark.parametrize("name", [c["name"] for c in CASES])
 def test_corpus_streams_through_the_harness(host, monkeypatch, name):
-    """Whole pinned corpus streams (the JAX package's bytes) with the CRC
+    """Every pinned corpus stream (the JAX package's bytes) with the CRC
     harness in the kernel's place."""
     case = next(c for c in CASES if c["name"] == name)
     calls = _patch_kernel(monkeypatch, host)

@@ -548,11 +548,15 @@ def test_analysis_kernel_wide_disqualification(rng, k):
 
 def test_rice_kernel_matches_plain(rng):
     """zf_rice_estimate == rice_estimate for orders 0-32 (partitions shorter
-    than the order at B = 256), quiet rows and full-range residuals; at
-    max_rice_order 15 and B = 4096 both refuse (ValueError, no launch)."""
+    than the order at B = 256), quiet rows and full-range residuals, blocks
+    not a multiple of 4 or 16 (66, 1972, 4098: the runs' word loads),
+    partitions shorter than a run (66 at order 1), several tiles (4098,
+    65535), and rows that do not start on 16 bytes; at max_rice_order 15 and
+    B = 4096 both refuse (ValueError, no launch)."""
     from zigflac_tpu_torch.ops import analyze
 
-    for b, max_rice_order in ((4096, 8), (256, 8), (4608, 6), (4096, 15)):
+    for b, max_rice_order in ((4096, 8), (256, 8), (4608, 6), (66, 8), (1972, 8), (4098, 8),
+                              (65535, 8), (4096, 15)):
         if b == 4096 and max_rice_order == 15:
             res = torch.zeros((4, b), dtype=torch.int32, device="cuda")
             order = torch.zeros(4, dtype=torch.int64, device="cuda")
@@ -568,13 +572,15 @@ def test_rice_kernel_matches_plain(rng):
         res[np.arange(b)[None, :] < order[:, None]] = 0
         res[1::4] >>= 10
         res[3::4] = rng.integers(-(1 << 31), 1 << 31, (res[3::4].shape)).astype(np.int32)
-        r, o = torch.from_numpy(res).cuda(), torch.from_numpy(order).cuda()
-        for max_param in (14, 30):
-            analyze.reset_counts()
-            got = analyze.rice_estimate_planes(r, o, max_rice_order, max_param)
-            assert (analyze.RICE_KERNEL_LAUNCHES, analyze.PLAIN_CALLS) == (1, 0)
-            want = analyze.rice_estimate(r, o, b, max_rice_order, max_param)
-            assert all(torch.equal(g, w) for g, w in zip(got, want)), (b, max_param)
+        flat = torch.from_numpy(np.concatenate([[7], res.reshape(-1)]).astype(np.int32)).cuda()
+        o = torch.from_numpy(order).cuda()
+        for r in (torch.from_numpy(res).cuda(), flat[1:].view(order.size, b)):
+            for max_param in (14, 30):
+                analyze.reset_counts()
+                got = analyze.rice_estimate_planes(r, o, max_rice_order, max_param)
+                assert (analyze.RICE_KERNEL_LAUNCHES, analyze.PLAIN_CALLS) == (1, 0)
+                want = analyze.rice_estimate(r, o, b, max_rice_order, max_param)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (b, max_param)
 
 
 @pytest.mark.parametrize("lim", [(1 << 23) - 1, 1 << 23])
@@ -620,15 +626,23 @@ def test_encode_refuses_partition_order_above_8_before_the_card(rng):
 
 
 def test_crc_kernel_matches_plain(rng):
-    """zf_crc16_frames == crc16_words + deposit_crc16: random rows of every
-    length about the row's end, frames over the row, and both write modes."""
+    """zf_crc16_frames == crc16_words + deposit_crc16: random rows of lengths
+    0-20 (every residue mod 4 and 16), about a round of the frame's lanes
+    and about the row's end, frames over the row, rows of one to three
+    words, rows that do not start on 16 bytes (the word branch), and both
+    write modes."""
     from zigflac_tpu_torch.ops import crc16
 
-    for w in (1, 37, 5504, 18432):
-        lens = np.array(sorted({0, 1, 5, 1023, 1024, 4 * w - 2, 4 * w - 1, 4 * w, 4 * w + 9}))
+    for w, offset in ((1, 0), (2, 0), (3, 0), (37, 0), (5504, 0), (5504, 1), (18432, 0),
+                      (18432, 3)):
+        lens = np.array(sorted({*range(21), 1023, 1024, 1025, 4095, 4096, 4097, 4 * w - 2,
+                                4 * w - 1, 4 * w, 4 * w + 9}))
         be = rng.integers(0, 256, (lens.size, 4 * w), dtype=np.uint8)
         be[np.arange(4 * w)[None, :] >= lens[:, None]] = 0
-        words = torch.from_numpy(be.view(">i4").astype(np.int32)).cuda()
+        rows = be.view(">i4").astype(np.int32)
+        flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.int32),
+                                                rows.reshape(-1)])).cuda()
+        words = flat[offset:].view(lens.size, w)
         byte_len = torch.from_numpy(lens).cuda()
         want = crc16.crc16_frames_plain(words, byte_len)
         crc16.reset_counts()
@@ -637,7 +651,7 @@ def test_crc_kernel_matches_plain(rng):
         crcs, out = crc16.crc16_frames(words, byte_len)
         assert out is words  # in place
         assert (crc16.KERNEL_LAUNCHES, crc16.PLAIN_CALLS) == (2, 0)
-        assert torch.equal(crcs, want[0]) and torch.equal(out, want[1])
+        assert torch.equal(crcs, want[0]) and torch.equal(out, want[1]), (w, offset)
 
 
 def test_kernels_refuse_what_they_do_not_take(rng):

@@ -13,15 +13,19 @@ Prints JSON lines:
          depths 8-32 and the int64 side plane, wide mode, blocks of 1 to
          65535 samples, partition orders 0-8, params up to 14 and 30, planes
          that do not start on 16 bytes, planes on both sides of the narrow
-         arithmetic's limit, and the Rice entry on orders 0-32;
+         arithmetic's limit, and the Rice entry on orders 0-32 at blocks
+         of 66 to 65535 samples and on rows that do not start on 16 bytes;
   time   CUDA-event ms of zf_analyze_fixed's launches alone, back to back
-         after a warm-up (mean of 50), on config 1's batch (4 x 1024 planes
+         after a warm-up (mean of 50; graph_ms: the same 50 launches
+         captured in one CUDA graph, without the host's issue), on config 1's batch (4 x 1024 planes
          of 4096 int32, 16-bit content from bench.py's recipe, seed 0xBEEF),
          the same shape of 24-bit content, the int64 side plane of 32-bit
          content (1 x 1024 x 4096), and config 1's 1,972-sample tail; and
-         zf_rice_estimate on config 3's LPC residuals. Beside each, the bound
-         of chip_smoke.analysis_bound and the share of it; each timed input
-         is checked against the plain version first;
+         zf_rice_estimate on config 3's LPC residuals, beside an empty
+         kernel of its grid (4096 CTAs of 256 threads), the floor of any
+         launch. Beside each, the bound of chip_smoke.analysis_bound and the
+         share of it; each timed input is checked against the plain version
+         first;
   sass   from cuobjdump's disassembly of the library that was timed: for each
          instance of the two kernels, its instructions by opcode and its
          largest straight-line blocks (the unrolled runs of samples).
@@ -49,8 +53,67 @@ def log(what, **kv):
     print(json.dumps({"what": what, **kv}), flush=True)
 
 
-def sass_functions(text, top=3):
-    """Per instance of the analysis kernels: instruction count by opcode and
+EMPTY_SOURCE = r"""
+__global__ void zf_empty_kernel() {}
+extern "C" int zf_empty_launch(unsigned grid, unsigned threads, void* stream) {
+  zf_empty_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launcher(torch):
+    """launch(grid, threads): an empty kernel's launch on the current stream,
+    built with nvcc into the port's build directory: the floor under any
+    kernel of the same grid."""
+    import ctypes
+
+    from zigflac_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "zf_empty_kernel.so"
+    if not out.exists():
+        src = _build.BUILD_DIR / "zf_empty_kernel.cu"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(EMPTY_SOURCE)
+        _build._compile([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                         "-shared", "-Xcompiler", "-fPIC", str(src)], out)
+    lib = ctypes.CDLL(str(out))
+    lib.zf_empty_launch.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+
+    def launch(grid, threads, stream=None):
+        if stream is None:
+            stream = torch.cuda.current_stream().cuda_stream
+        if lib.zf_empty_launch(grid, threads, stream):
+            raise RuntimeError("empty kernel launch failed")
+    return launch
+
+
+def graph_ms(torch, launch, reps=50):
+    """Mean device milliseconds of launch(stream) over ``reps`` launches
+    captured in one CUDA graph and replayed (after a warm-up replay): the
+    kernel's time without the host's issue of each launch, which back to
+    back ctypes launches of a short kernel wait on."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(reps):
+            launch(stream)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sass_functions(text, kernels=KERNELS, top=3):
+    """Per instance of the named kernels: instruction count by opcode and
     the ``top`` largest branch-free blocks with their opcodes."""
     out, block, blocks, ops, name = {}, [], [], collections.Counter(), None
 
@@ -74,7 +137,7 @@ def sass_functions(text, top=3):
         if "Function :" in line:
             finish()
             fn = line.split("Function :")[1].strip()
-            name = fn if any(k in fn for k in KERNELS) else None
+            name = fn if any(k in fn for k in kernels) else None
             continue
         if name is None:
             continue
@@ -166,13 +229,18 @@ def main() -> int:
             check_fixed(np.stack(rows).astype(np.int32), wide, 8, 30)
         checked.append(f"limit{lim}")
     orders = np.arange(33).repeat(2)
-    for b in (4096, 256):
+    for b in (4096, 256, 66, 1972, 4098, 65535):
         res = rng.integers(-3000, 3000, (orders.size, b)).astype(np.int32)
         res[np.arange(b)[None, :] < orders[:, None]] = 0
         res[1::2] >>= 10
         for max_param in (14, 30):
             check_rice(res, orders, 8, max_param)
         checked.append(f"rice_orders_b{b}")
+    # residual rows that do not start on 16 bytes (the runs' word loads)
+    flat = torch.from_numpy(rng.integers(-3000, 3000, orders.size * BLOCK + 1)
+                            .astype(np.int32)).to(dev)
+    check_rice(flat[1:].view(orders.size, BLOCK), orders)
+    checked.append("rice_unaligned")
     log("check", equal=checked)
 
     # -- the timed inputs --------------------------------------------------------
@@ -215,10 +283,9 @@ def main() -> int:
                 *(o.data_ptr() for o in outs)]
         if parent_abi:
             args.append(None)
-        args.append(stream)
 
-        def run():
-            err = lib.zf_analyze_fixed(*args)
+        def run(s=stream, outs=outs):  # the outputs live as long as run
+            err = lib.zf_analyze_fixed(*args, s)
             if err:
                 raise RuntimeError(f"zf_analyze_fixed: {lib.zf_error_string(err).decode()}")
         return run
@@ -226,13 +293,15 @@ def main() -> int:
     out = {}
     for name, (x, wide, max_param) in cases.items():
         check_fixed(x, wide, 8, max_param)
-        ms = cuda_ms(torch, raw_fixed(x, wide, max_param), reps=50)
+        run = raw_fixed(x, wide, max_param)
+        ms = cuda_ms(torch, run, reps=50)
         b = x.shape[-1]
         nbytes, bound_ms, bound_by, ops_ms = analysis_bound(x.numel() // b, b, x.element_size(),
                                                             True)
         out[name] = {"planes": list(x.shape), "dtype": str(x.dtype), "wide": wide,
-                     "kernel_ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bound_ops_ms": ops_ms, "share_of_bound": bound_ms / ms}
+                     "kernel_ms": ms, "graph_ms": graph_ms(torch, run), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_ops_ms": ops_ms,
+                     "share_of_bound": bound_ms / ms}
 
     cfg = EncoderConfig.default(2)
     l_order, l_res, *_ = lpc.analyze_lpc(lrms32(wav3), cfg.lpc_order, cfg.lpc_precision)
@@ -240,12 +309,19 @@ def main() -> int:
     r_args = [l_res.data_ptr(), l_order.data_ptr(), l_order.numel(), BLOCK, 8, 14]
     r_outs = [torch.empty(l_order.numel(), dtype=torch.int64, device=dev) for _ in range(3)]
     r_outs.append(torch.empty((l_order.numel(), 256), dtype=torch.int64, device=dev))
-    r_args += [o.data_ptr() for o in r_outs] + ([None] if parent_abi else []) + [stream]
-    ms = cuda_ms(torch, lambda: lib.zf_rice_estimate(*r_args), reps=50)
+    r_args += [o.data_ptr() for o in r_outs] + ([None] if parent_abi else [])
+    r_run = lambda s=stream: lib.zf_rice_estimate(*r_args, s)
+    ms = cuda_ms(torch, r_run, reps=50)
     nbytes, bound_ms, bound_by, ops_ms = analysis_bound(l_order.numel(), BLOCK, 4, False)
+    empty = empty_launcher(torch)
+    p3 = l_order.numel()
     out["config3_lpc_rice"] = {"residuals": list(l_res.shape), "kernel_ms": ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "bound_ops_ms": ops_ms, "share_of_bound": bound_ms / ms}
+                               "graph_ms": graph_ms(torch, r_run), "bound_ms": bound_ms,
+                               "bound_by": bound_by, "bound_ops_ms": ops_ms,
+                               "share_of_bound": bound_ms / ms,
+                               "empty_grid_ms": cuda_ms(torch, lambda: empty(p3, 256), reps=50),
+                               "empty_grid_graph_ms": graph_ms(
+                                   torch, lambda s: empty(p3, 256, s))}
     log("time", clocks=smi("clocks.sm,clocks.max.sm"), **out)
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")

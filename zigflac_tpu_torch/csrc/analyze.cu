@@ -55,8 +55,11 @@
 //   params. Three barriers a plane in all.
 //
 // zf_rice_estimate takes the same sweep over residuals and orders the
-// caller gives (the LPC candidate, orders 1-32); its input pass adds each
-// sample's zigzag to its partition (lanes of one partition summed first).
+// caller gives (the LPC candidate, orders 1-32). Its input pass is pass 2's
+// input half: runs of kZfRun residuals loaded with 16-byte loads, zigzagged
+// in registers, summed split at the partition boundary and added as pass 2
+// adds them. Its bound is bytes too: config 3's LPC residuals (4 x 1024
+// planes of 4096) are 67 MB read, ~0.023 ms.
 //
 // Its bound on the H100 is bytes: a config-1 batch (4 x 1024 planes of 4096
 // int32 samples) reads 67 MB of planes and writes 67 MB of residuals and
@@ -260,12 +263,12 @@ __device__ __forceinline__ void add_runs(uint64_t* top, int key, uint64_t v, boo
   else atomicAdd((unsigned long long*)&top[key], (unsigned long long)v);
 }
 
-// One tile's run of a thread: x[r] = plane[start + r] (0 past b), its four
-// predecessors p (0 before and past the plane), and whether its warp may
-// take the narrow arithmetic (never for int64 planes).
+// A thread's run of one tile: v[r] = x[start + r], 0 past b; one 16-byte
+// load for each 16 bytes where the plane allows it (vec) and the run is
+// whole.
 template <typename T>
-__device__ __forceinline__ bool load_run(const T* __restrict__ x, int b, int start, bool vec,
-                                         T (&v)[kZfRun], T (&p)[4]) {
+__device__ __forceinline__ void load_values(const T* __restrict__ x, int b, int start, bool vec,
+                                            T (&v)[kZfRun]) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec && start + kZfRun <= b) {
     using V = typename std::conditional<sizeof(T) == 4, int4, longlong2>::type;
@@ -287,6 +290,15 @@ __device__ __forceinline__ bool load_run(const T* __restrict__ x, int b, int sta
 #pragma unroll
     for (int r = 0; r < kZfRun; ++r) v[r] = start + r < b ? x[start + r] : T(0);
   }
+}
+
+// One tile's run of a thread: x[r] = plane[start + r] (0 past b), its four
+// predecessors p (0 before and past the plane), and whether its warp may
+// take the narrow arithmetic (never for int64 planes).
+template <typename T>
+__device__ __forceinline__ bool load_run(const T* __restrict__ x, int b, int start, bool vec,
+                                         T (&v)[kZfRun], T (&p)[4]) {
+  load_values(x, b, start, vec, v);
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int m = 0; m < 4; ++m) {  // from the lane below; lane 0 reads its own
@@ -307,6 +319,35 @@ __device__ __forceinline__ bool load_run(const T* __restrict__ x, int b, int sta
     return zf_narrow_ok(__reduce_max_sync(kFull, m));
   } else {
     return false;
+  }
+}
+
+// Adds a run's zigzag sums to the top-level partitions of psz samples
+// (every lane of the warp calls it; r is 0 past the plane). Where partitions
+// hold at least a run (the same branch for the whole block), a run meets at
+// most two: its sums on either side of the boundary go through add_runs,
+// 32-bit where the warp is narrow; shorter partitions are added piece by
+// piece.
+__device__ __forceinline__ void add_run_sums(const int32_t (&r)[kZfRun], int start, int b,
+                                             bool narrow, uint64_t* top, int psz, bool own) {
+  if (psz >= kZfRun) {
+    const int key = start / psz;
+    const int split = min((key + 1) * psz - start, kZfRun);
+    uint64_t a, c;
+    if (narrow) {
+      uint32_t a32, c32;
+      zf_run_split_sums<uint32_t>(r, split, &a32, &c32);
+      a = a32;
+      c = c32;
+    } else {
+      zf_run_split_sums<uint64_t>(r, split, &a, &c);
+    }
+    add_runs(top, key, a, own);
+    if (__any_sync(kFull, c != 0)) add_runs(top, key + 1, c, false);
+  } else if (start < b) {
+    zf_run_pieces(r, start, psz, [&](int key, uint64_t s) {
+      if (s) atomicAdd((unsigned long long*)&top[key], (unsigned long long)s);
+    });
   }
 }
 
@@ -352,25 +393,7 @@ __device__ __forceinline__ void pass2_run(const T (&v)[kZfRun], const T (&p)[4],
         if (start + q < b) res[start + q] = r[q];
     }
   }
-  if (psz >= kZfRun) {  // the same branch for the whole block
-    const int key = start / psz;
-    const int split = min((key + 1) * psz - start, kZfRun);
-    uint64_t a, c;
-    if (sizeof(T) == 4 && narrow) {
-      uint32_t a32, c32;
-      zf_run_split_sums<uint32_t>(r, split, &a32, &c32);
-      a = a32;
-      c = c32;
-    } else {
-      zf_run_split_sums<uint64_t>(r, split, &a, &c);
-    }
-    add_runs(top, key, a, own);
-    if (__any_sync(kFull, c != 0)) add_runs(top, key + 1, c, false);
-  } else if (start < b) {
-    zf_run_pieces(r, start, psz, [&](int key, uint64_t s) {
-      if (s) atomicAdd((unsigned long long*)&top[key], (unsigned long long)s);
-    });
-  }
+  add_run_sums(r, start, b, sizeof(T) == 4 && narrow, top, psz, own);
 }
 
 // The order from each thread's pass-1 share: warp sums, one barrier, then
@@ -443,36 +466,27 @@ analyze_fixed_kernel(const T* __restrict__ planes, int b, bool wide, bool vec_in
              params + pl * kZfParamCols);
 }
 
-// Adds each lane's zigzag z into top[key] with one atomic for each key the
-// warp holds (a partition of 16 samples takes 2 atomics a warp, not 32).
-// The two 16-bit halves are summed apart so the 32-bit sums cannot wrap.
-// Every lane of the warp calls it.
-__device__ __forceinline__ void add_by_partition(uint64_t* top, uint32_t key, uint32_t z) {
-  const unsigned peers = __match_any_sync(kFull, key);
-  const unsigned lo = __reduce_add_sync(peers, z & 0xFFFFu);
-  const unsigned hi = __reduce_add_sync(peers, z >> 16);
-  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1) {
-    const uint64_t sum = ((uint64_t)hi << 16) + lo;
-    if (sum) atomicAdd((unsigned long long*)&top[key], (unsigned long long)sum);
-  }
-}
-
+// zf_rice_estimate's plane: the input half of analyze_fixed_kernel's pass
+// 2. Each thread loads runs of kZfRun residuals (16-byte loads where vec),
+// and add_run_sums adds their zigzag sums to the top-level partitions, by a
+// plain store where the warp owns its partitions; then the sweep.
 __global__ void __launch_bounds__(kThreads)
 rice_estimate_kernel(const int32_t* __restrict__ residuals, const int64_t* __restrict__ order,
-                     int b, int po_top, int max_param, int64_t* __restrict__ bits,
+                     int b, bool vec, int po_top, int max_param, int64_t* __restrict__ bits,
                      int64_t* __restrict__ method, int64_t* __restrict__ part_order,
                      int64_t* __restrict__ params) {
   __shared__ Sweep sh;
   const int64_t pl = blockIdx.x;
   const int32_t* res = residuals + pl * b;
+  const int ntiles = (b + kTile - 1) / kTile, psz = b >> po_top;
+  const bool own = ntiles == 1 && psz % kZfRun == 0 && (32 * kZfRun) % psz == 0;
   sweep_zero(sh, po_top);
   __syncthreads();
-  uint64_t* top = sh.top;
-  const uint32_t psz_top = (uint32_t)(b >> po_top);
-  for (int base = 0; base < b; base += kThreads) {  // the same trips for every lane
-    const int i = base + threadIdx.x;
-    add_by_partition(top, (uint32_t)(i < b ? i : b - 1) / psz_top,
-                     i < b ? zf_zigzag(res[i]) : 0u);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int start = tile * kTile + threadIdx.x * kZfRun;
+    int32_t r[kZfRun];
+    load_values(res, b, start, vec, r);
+    add_run_sums(r, start, b, false, sh.top, psz, own);
   }
   __syncthreads();
   rice_sweep(sh, b, po_top, order[pl], max_param, bits + pl, method + pl, part_order + pl,
@@ -522,8 +536,9 @@ int zf_rice_estimate(const void* residuals, const void* order, int64_t p, int64_
   if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   const int po_top = zf_po_top(b, (int)max_rice_order);
   if (po_top > kZfMaxPartOrder) return (int)cudaErrorInvalidValue;
+  const bool vec = (uintptr_t)residuals % 16 == 0 && b % 4 == 0;
   rice_estimate_kernel<<<(unsigned)p, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)residuals, (const int64_t*)order, (int)b, po_top, (int)max_param,
+      (const int32_t*)residuals, (const int64_t*)order, (int)b, vec, po_top, (int)max_param,
       (int64_t*)bits, (int64_t*)method, (int64_t*)part_order, (int64_t*)params);
   return (int)cudaGetLastError();
 }

@@ -248,10 +248,13 @@ class DevicePipeline:
         encoded at its exact block size and numbered after the full frames.
         ``overlap_work`` is an optional host callback run after every batch
         has been dispatched and before collection blocks, so serial host
-        work (the raw-PCM MD5) overlaps the device's.
+        work (the raw-PCM MD5) overlaps the device's. A tail whose partition
+        order the analysis cannot hold is refused before any batch runs.
         """
         f = frames.shape[0]
         bs = self.batch_size
+        if tail is not None:
+            check_partition_order(tail.shape[-1], self.config.max_rice_order)
         if frame_numbers is None:
             frame_numbers = first_frame_number + np.arange(f, dtype=np.int64)
         pending = []

@@ -33,8 +33,9 @@ NATIVE_SOURCE = Path(__file__).resolve().parents[2] / "native" / "zf_native.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lib = None
-# this process's nvcc run, if it ran one: wall seconds and output (ptxas
-# reports each kernel's registers and shared memory)
+# this process's nvcc run, if it ran one: wall seconds; and the output of
+# the run that built the loaded library (ptxas reports each kernel's
+# registers, shared memory and spills), kept beside it
 BUILD_SECONDS = None
 BUILD_LOG = ""
 _native = None
@@ -80,9 +81,13 @@ def library() -> ctypes.CDLL:
     for p in sorted(CSRC.glob("*.cu*")):
         digest.update(p.name.encode() + p.read_bytes())
     out = BUILD_DIR / f"zf_kernels_{digest.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
     if not out.exists():
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), *map(str, sources)]
         BUILD_SECONDS, BUILD_LOG = _compile(cmd, out)
+        log.write_text(BUILD_LOG)
+    elif log.exists():
+        BUILD_LOG = log.read_text()
     lib = ctypes.CDLL(str(out))
     lib.zf_deposit_words.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
         ctypes.c_void_p, ctypes.c_void_p,
