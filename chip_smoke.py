@@ -26,6 +26,17 @@ Phases:
      four batches' words, the 73 KB exact-tier rows among them, in both
      write modes, and against crc.crc16 of three frames' bytes each; config
      1's batch timed in turns with the plain version, beside its bound.
+     2-symbols: the frame symbols kernel against its plain version
+     (bitpack.frame_symbol_stream), dep_cum, total_bits, val and nbv all
+     equal, on synthetic plans of its watch list (SYMBOL_WATCH: blocks of 1
+     to 65,535 samples, 1-8 channels, every subframe kind, escapes and the
+     N1 fallback, Rice codes of thousands of bits, frames past 2^32 bits,
+     LPC orders up to 32, wasted bits, 33-bit side planes, max_rice_order
+     0-12, every frame-number length and uncommon rates), on the analysis's
+     plans of signals at depths 8-32 and 1-8 channels and of ROADMAP's N1
+     input, and on the real plans of the batches above and of config 2;
+     config 1's batch timed in turns with the plain version, beside
+     symbols_bound.
      2-analysis: the analysis kernels against their plain versions, every
      output field equal: zf_analyze_fixed on random planes at depths 8-32
      and the 33-bit int64 side plane, a wide-mode disqualification of each
@@ -144,8 +155,8 @@ Phases:
 Every encode or decode path under test in this process (phases 3-10 and
 12; not the runs it is compared with, nor the CLI subprocesses) runs with the
 kernels' counts set to 0 just before it and read just after: it must have
-launched its kernels (for an encode the analysis, deposit and CRC-16
-kernels, and the Rice kernel with LPC; for a decode the synthesis) and
+launched its kernels (for an encode the analysis, symbols, deposit and
+CRC-16 kernels, and the Rice kernel with LPC; for a decode the synthesis) and
 never called a plain version. Any failure raises, so the exit code is
 not 0. Phases 8 to 11 work in a temporary directory, removed at the end.
 The last line is one JSON object naming the card; the line before it lists
@@ -330,6 +341,126 @@ def crc_bound(byte_len: np.ndarray, w: int):
     frame_bytes = int(np.minimum(byte_len, 4 * w).sum())
     nbytes = frame_bytes + byte_len.size * (8 + 8 + 2)
     return (nbytes, *_bound(nbytes, CRC_INT32_OPS_PER_BYTE * frame_bytes))
+
+
+# INT32 operations a column in csrc/symbols_steps.cuh zf_sym_column: the
+# region tests, the 32-bit division into grid groups, the partition's fields,
+# the zigzag and the Rice code in 64-bit arithmetic (two to four INT32
+# operations each), three stores and a share of the tile's scan
+SYMBOLS_INT32_OPS_PER_COLUMN = 60
+# the partition keys: a load, the key, the division into partitions and the
+# warp's match and reduction, a residual of a predicted subframe
+SYMBOLS_INT32_OPS_PER_SAMPLE = 12
+
+
+def symbols_bound(plan, n_cols: int):
+    """(bytes, ms, bound_by, ops_ms) of one symbols launch, counted from the
+    plan's data: every column's int32 end bit, int64 value and int32 width
+    written, and total_bits; read once what the columns need: a predicted
+    subframe's residuals, warmup samples, 2^part_order params (and LPC
+    coefficients), a verbatim subframe's samples, a constant's first, each
+    subframe's seven int64 fields, the frame numbers and channel codes.
+    Operations: SYMBOLS_INT32_OPS_PER_COLUMN a column and
+    SYMBOLS_INT32_OPS_PER_SAMPLE a predicted residual."""
+    w, n = plan.kind.shape
+    b = plan.planes.shape[-1]
+    kind, order, po = (getattr(plan, f).cpu().numpy() for f in ("kind", "order", "part_order"))
+    pred = kind >= 2
+    samples = np.where(kind == 1, b, np.where(kind == 0, 1, np.where(pred, order, 0)))
+    nbytes = (16 * n * n_cols + 8 * n + 16 * n + 7 * 8 * w * n
+              + plan.planes.element_size() * int(samples.sum())
+              + 4 * b * int(pred.sum()) + 8 * int(np.where(pred, 1 << po, 0).sum())
+              + 8 * int(np.where(kind == 3, order, 0).sum()))
+    ops = SYMBOLS_INT32_OPS_PER_COLUMN * n * n_cols + SYMBOLS_INT32_OPS_PER_SAMPLE * b * int(
+        pred.sum())
+    return (nbytes, *_bound(nbytes, ops))
+
+
+# the symbols kernel's watch list: (frames, wire channels, block size,
+# max_rice_order, LPC order, depth, 33-bit side channel, wasted bits), for
+# synthetic_plan
+SYMBOL_WATCH = [
+    (8, 2, 4096, 8, 0, 16, True, False),
+    (6, 1, 1, 8, 0, 16, False, False),
+    (6, 2, 2, 8, 0, 24, True, False),
+    (6, 3, 3, 8, 8, 16, False, False),
+    (6, 1, 5, 8, 0, 32, False, False),
+    (4, 2, 192, 8, 32, 16, True, True),
+    (4, 8, 4095, 8, 12, 24, False, True),
+    (3, 4, 4096, 8, 32, 20, False, False),
+    (4, 2, 2304, 0, 0, 16, True, False),
+    (4, 2, 2304, 4, 0, 12, True, False),
+    (4, 2, 2304, 8, 0, 8, True, False),
+    (4, 2, 2304, 12, 0, 16, True, False),
+    (4, 2, 1024, 8, 8, 32, True, True),
+    (2, 2, 65535, 8, 32, 24, True, False),
+]
+# frame numbers of every UTF-8 length, and sample rates in RATE_CODES and out
+# (8-bit, 16-bit and /10 tail bytes, and 0)
+SYMBOL_FRAME_NUMBERS = [0, 0x7F, 0x80, 1 << 11, 1 << 16, 1 << 21, 1 << 26, (1 << 31) - 1]
+SYMBOL_RATES = [44100, 96000, 8000, 100, 12345, 700000, 0]
+
+
+def synthetic_plan(rng, n, w, b, max_rice_order=8, lpc_order=0, depth=16, side=False,
+                   wasted=False, methods=(0, 1),
+                   impulses=(1 << 13, -(1 << 31), (1 << 31) - 1)):
+    """A random FrameWirePlan on the CPU (int64 fields, int32 planes, or
+    int64 where a 33-bit side channel is asked at depth 32) of every
+    subframe kind, drawn from ``rng``: escape params, partitions of zeros,
+    of small values, of values that take the N1 fallback (bps 32 under an
+    escape), and of one impulse from ``impulses`` that a small Rice param
+    codes in thousands of bits (or, at the residual's ends, in up to 2^32);
+    warmup residuals zero, channel codes 0-10."""
+    import torch
+    from zigflac_tpu_torch.ops.analyze import FrameWirePlan
+
+    po_top = min(max_rice_order, (b & -b).bit_length() - 1)
+    kinds = [0, 1] + ([2] if b > 1 else []) + ([3] if lpc_order and b > 1 else [])
+    kind = rng.choice(kinds, (w, n))
+    order = np.where(kind == 2, rng.integers(0, min(4, b - 1) + 1, (w, n)), 0)
+    if lpc_order:
+        order = np.where(kind == 3, rng.integers(1, min(lpc_order, b - 1) + 1, (w, n)), order)
+    pred = kind >= 2
+    method = np.where(pred, rng.choice(methods, (w, n)), 0)
+    part_order = np.where(pred, rng.integers(0, po_top + 1, (w, n)), 0)
+    shaved = (rng.integers(1, 4, (w, n)) * (rng.random((w, n)) < 0.5) if wasted
+              else np.zeros((w, n), np.int64))
+    extra = np.zeros((w, n), np.int64)
+    if side:
+        extra[-1] = 1
+    ss = depth + extra - shaved
+    esc = (1 << (4 + method)) - 1
+    params = np.zeros((w, n, 256), np.int64)
+    res = np.zeros((w, n, b), np.int64)
+    for c in range(w):
+        for f in range(n):
+            psize = b >> part_order[c, f]
+            for p in range(1 << part_order[c, f]):
+                cls = rng.integers(0, 5)
+                seg = slice(p * psize, (p + 1) * psize)
+                if cls == 1:
+                    res[c, f, seg] = rng.integers(-300, 300, psize)
+                elif cls == 2:
+                    res[c, f, seg] = rng.integers(-(1 << 31), 1 << 31, psize)
+                elif cls == 3:
+                    res[c, f, seg] = rng.integers(-2, 3, psize)
+                    res[c, f, p * psize + rng.integers(0, psize)] = rng.choice(impulses)
+                elif cls == 4:
+                    res[c, f, seg] = rng.integers(-(1 << 9), 1 << 9, psize)
+                params[c, f, p] = (esc[c, f] if cls in (2, 4) or rng.random() < 0.2
+                                   else rng.integers(0, esc[c, f] + 1))
+            res[c, f, : order[c, f]] = 0
+    hi = 1 << (ss[..., None] - 1)
+    planes = np.floor(rng.random((w, n, b)) * (2 * hi)).astype(np.int64) - hi
+    prec = 15
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64))
+    return FrameWirePlan(
+        channels_code=t(rng.integers(0, 11, n)), kind=t(kind), order=t(order),
+        method=t(method), part_order=t(part_order), sample_size=t(ss), params=t(params),
+        planes=torch.from_numpy(planes if depth + side > 32 else planes.astype(np.int32)),
+        residuals=torch.from_numpy(res.astype(np.int32)),
+        qcoeffs=t(rng.integers(-(1 << (prec - 1)), 1 << (prec - 1), (w, n, 32))),
+        qshift=t(rng.integers(0, 16, (w, n))), wasted=t(shaved))
 
 
 def ptxas_of(kernels):
@@ -827,6 +958,130 @@ def phase2_analysis(env, batches, lpc_batch):
             entry("rice_estimate", 197, max_err["rice"], r_kernel, r_plain, rb))
 
 
+def _signal_frames(rng, n, channels, b, depth, shift=0, antiphase=False):
+    """n frames [n, channels, b] of a tone and noise at ``depth`` bits (the
+    low ``shift`` bits zero), int32; ``antiphase``: the second channel the
+    first's negative, so that a stereo side channel needs depth + 1 bits."""
+    lim = 1 << (depth - shift - 1)
+    t = np.arange(n * b)
+    x = 0.6 * lim * np.sin(2 * np.pi * 440 * t / RATE)
+    chans = [x + rng.normal(0, lim / 64, t.size) for _ in range(channels)]
+    if antiphase:
+        chans[1] = -chans[0]
+    x = np.clip(np.round(np.stack(chans)), -lim, lim - 1).astype(np.int64) << shift
+    return x.reshape(channels, n, b).transpose(1, 0, 2).astype(np.int32)
+
+
+def phase2_symbols(env, batches):
+    """The symbols kernel against its plain version on the card, dep_cum,
+    total_bits, val and nbv all equal: synthetic plans of the watch list
+    (SYMBOL_WATCH: blocks of 1 to 65,535 samples, 1-8 channels, every
+    subframe kind, escapes and the N1 fallback, Rice codes of thousands of
+    bits and frames past 2^32 bits, LPC orders up to 32, wasted bits, 33-bit
+    side planes, max_rice_order 0-12, 4- and 5-bit params) with every
+    frame-number length, channel code and uncommon rate; the analysis's
+    plans of signals at depths 8-32, 1-8 channels and stereo_auto, fixed and
+    LPC (order 32, precision 15), wasted bits, 4-bit params, independent
+    channels' strided planes and a 33-bit side plane, and of ROADMAP's N1
+    input; then the real plans of one batch each of ``batches`` (name ->
+    (plan, frame numbers, header static, lpc_order, lpc_precision)).
+    Config 1's batch is timed in turns with the plain version, beside
+    symbols_bound. Returns the kernel's entry for the last lines."""
+    torch, dev, symbols, bitpack, analyze = env.torch, env.dev, env.symbols, env.bitpack, \
+        env.analyze
+    from zigflac_tpu_torch.ops.header import header_static
+
+    err, checked = 0, []
+    on_card = lambda plan: analyze.FrameWirePlan(*(t.to(dev) for t in plan))
+
+    def compare(what, plan, fns, hs, b, mro, lpc_order, prec):
+        nonlocal err
+        fns = torch.as_tensor(fns, dtype=torch.int64).to(dev)
+        got = symbols.frame_symbols(plan, fns, hs, b, mro, lpc_order, prec)
+        d, tb, v, nb = bitpack.frame_symbol_stream(plan, fns, hs, b, mro, lpc_order, prec)
+        want = (d.to(torch.int32), tb, v, nb.to(torch.int32))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"symbols kernel on {what}: {g.dtype} {list(g.shape)} "
+                                     f"against {w.dtype} {list(w.shape)}")
+            if not torch.equal(g, w):
+                err = max(err, 1, int((g.double() - w.double()).abs().max()))
+        if err:
+            raise AssertionError(f"symbols kernel != plain on {what} (max |diff| {err})")
+        checked.append(what)
+        return got
+
+    for n, w, b, mro, lpc_order, depth, side, wasted in SYMBOL_WATCH:
+        rng = np.random.default_rng(b * 31 + w * 7 + mro + lpc_order + depth)
+        plan = on_card(synthetic_plan(rng, n, w, b, mro, lpc_order, depth, side, wasted))
+        fns = [SYMBOL_FRAME_NUMBERS[(i * 3) % len(SYMBOL_FRAME_NUMBERS)] for i in range(n)]
+        hs = header_static(b, SYMBOL_RATES[b % len(SYMBOL_RATES)], depth)
+        compare(f"watch B{b} w{w} mro{mro} lpc{lpc_order} d{depth}", plan, fns, hs, b, mro,
+                lpc_order, 15)
+    # 4-bit params only, and one frame of two ~2^32-bit codes (sums past 2^32)
+    plan = synthetic_plan(np.random.default_rng(0x5E), 16, 2, 256, 2, methods=(0,))
+    for name, v in (("kind", 2), ("order", 0), ("method", 0), ("part_order", 0)):
+        getattr(plan, name)[0, 0] = v
+    plan.params[0, 0, 0] = 0
+    plan.residuals[0, 0, :2] = torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32)
+    _, total, val, nbv = compare("4-bit params, 2^32-bit codes", on_card(plan), list(range(16)),
+                                 header_static(256, RATE, 16), 256, 2, 0, 15)
+    if not (int(total.max()) >= 1 << 32 and bool(((val == 30) & (nbv == 4)).any())):
+        raise AssertionError("symbols watch: no frame past 2^32 bits or no N1 fallback")
+    rng = np.random.default_rng(0x51)
+    for depth, ch, fields, anti in (
+            (8, 1, dict(channels=1, block_size=1152), False),
+            (12, 3, dict(channels=3, block_size=1024, wasted_bits=True), False),
+            (16, 2, dict(), False),
+            (20, 2, dict(block_size=1024, prediction="lpc", lpc_order=32, lpc_precision=15),
+             False),
+            (24, 8, dict(channels=8, block_size=1024, max_rice_param=14), False),
+            (32, 2, dict(block_size=1024, prediction="lpc", lpc_order=12, wasted_bits=True),
+             False),
+            (32, 2, dict(block_size=1024), True)):
+        cfg = env.zt.EncoderConfig(**fields)
+        frames = _signal_frames(rng, 6, ch, cfg.block_size, depth, 2 if cfg.wasted_bits else 0,
+                                anti)
+        plan = analyze.plan_frames(torch.from_numpy(frames).to(dev), depth, cfg)
+        if anti and plan.planes.dtype != torch.int64:
+            raise AssertionError("the antiphase frames have no 33-bit side plane")
+        compare(f"signal d{depth} ch{ch} {fields}", plan, SYMBOL_FRAME_NUMBERS[:6],
+                header_static(cfg.block_size, RATE, depth), cfg.block_size, cfg.max_rice_order,
+                analyze.lpc_order_of(cfg), cfg.lpc_precision)
+    n1 = torch.tensor([[[20307570, 660849485, -1463004301, -295378865, 1646815274]]],
+                      dtype=torch.int32, device=dev)
+    plan = analyze.plan_frames(n1, 32, env.zt.EncoderConfig(block_size=5, channels=1,
+                                                             max_rice_param=14))
+    _, _, val, nbv = compare("N1", plan, [0], header_static(5, RATE, 32), 5, 8, 0, 14)
+    if not bool(((val == 30) & (nbv == 4)).any()):
+        raise AssertionError("the N1 input took no fallback param")
+
+    out = {}
+    for name, (plan, fns, hs, lpc_order, prec) in batches.items():
+        got = compare(name, plan, fns, hs, BLOCK, 8, lpc_order, prec)
+        out[name] = dict(columns=list(got[0].shape), planes=str(plan.planes.dtype),
+                         max_frame_bits=int(got[1].max()),
+                         bound_ms=symbols_bound(plan, got[0].shape[1])[1])
+    plan, fns, hs, lpc_order, prec = batches["config1"]
+    fns = fns.to(dev)
+    run = lambda: symbols.frame_symbols(plan, fns, hs, BLOCK, 8, lpc_order, prec)
+    run_plain = lambda: bitpack.frame_symbol_stream(plan, fns, hs, BLOCK, 8, lpc_order, prec)
+    s_plain, s_kernel = [cuda_ms(torch, run_plain, reps=5)], [cuda_ms(torch, run)]
+    s_kernel.append(cuda_ms(torch, run))
+    s_plain.append(cuda_ms(torch, run_plain, reps=5))
+    b = symbols_bound(plan, symbols.symbol_columns(plan.kind.shape[0], BLOCK, 8, lpc_order))
+    _log("2-symbols", max_abs_err=err, checked=len(checked), batches=out,
+         config1_kernel_ms=s_kernel, config1_plain_ms=s_plain, config1_bound_bytes=b[0],
+         config1_bound_ms=b[1], config1_bound_by=b[2], config1_bound_ops_ms=b[3],
+         launches_here=symbols.KERNEL_LAUNCHES, ptxas=ptxas_of(("symbols_kernel",)))
+    return {"name": "frame_symbols", "route": "cuda",
+            "source": "zigflac_tpu_torch/csrc/symbols.cu",
+            "replaces": "zigflac_tpu/ops/bitpack.py:472", "max_abs_err": err,
+            "ms": sum(s_kernel) / len(s_kernel), "plain_ms": sum(s_plain) / len(s_plain),
+            "bound_ms": b[1], "bound_by": b[2], "library_ms": None}
+
+
 # positions at which a boundary case's running sum leaves int32, by block
 # length: the first sample, the first tile, the middle, the last and the
 # first position of a 32-position tile, and a ragged last tile
@@ -1177,14 +1432,14 @@ def phase11_cli(env, tmp, album, long_file, wav3, want1):
 
 
 # One rank of phase 12b's gloo group on the shared card: argv = rank, port,
-# the config-1 WAV. A warm-up encode, then a timed one with the deposit
-# kernel's count set to 0 before it; prints one line of JSON.
+# the config-1 WAV. A warm-up encode, then a timed one with the deposit and
+# symbols kernels' counts set to 0 before it; prints one line of JSON.
 _RANK_CHILD = (
     "import hashlib, json, sys, time\n"
     "import torch\n"
     "import zigflac_tpu_torch as zt\n"
     "from zigflac_tpu_torch.models import pipeline\n"
-    "from zigflac_tpu_torch.ops import deposit\n"
+    "from zigflac_tpu_torch.ops import deposit, symbols\n"
     "from zigflac_tpu_torch.parallel import distributed\n"
     "rank, port, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]\n"
     "t0 = time.perf_counter()\n"
@@ -1195,14 +1450,16 @@ _RANK_CHILD = (
     "zt.encode_wav_bytes(wav, device='cuda:0')\n"
     "torch.cuda.synchronize()\n"
     "deposit.reset_counts()\n"
+    "symbols.reset_counts()\n"
     "t1 = time.perf_counter()\n"
     "flac = zt.encode_wav_bytes(wav, device='cuda:0')\n"
     "torch.cuda.synchronize()\n"
     "wall = time.perf_counter() - t1\n"
     "print('RANK ' + json.dumps(dict(rank=rank, sha256=hashlib.sha256(flac).hexdigest(),\n"
     "    wall_s=wall, start_to_warm_s=t1 - t0, kernel_launches=deposit.KERNEL_LAUNCHES,\n"
-    "    plain_calls=deposit.PLAIN_CALLS, mesh=[[p, str(d)] for p, d in mesh.entries])),\n"
-    "    flush=True)\n"
+    "    symbols_launches=symbols.KERNEL_LAUNCHES,\n"
+    "    plain_calls=deposit.PLAIN_CALLS + symbols.PLAIN_CALLS,\n"
+    "    mesh=[[p, str(d)] for p, d in mesh.entries])), flush=True)\n"
     "torch.distributed.destroy_process_group()\n"
 )
 
@@ -1325,7 +1582,8 @@ def phase12_multi(env, album, wav1, wav32, cfg_lpc):
     for got in ranks:
         if got["sha256"] != CONFIG1_FLAC_SHA or len(got["mesh"]) != 2:
             raise AssertionError(f"12b: rank {got['rank']} gave {got}")
-        if got["kernel_launches"] != batches + 1 or got["plain_calls"]:
+        if (got["kernel_launches"] != batches + 1 or got["symbols_launches"] != batches + 1
+                or got["plain_calls"]):
             raise AssertionError(f"12b: rank {got['rank']}: {got['kernel_launches']} launches")
     _log("12b", processes=2, backend="gloo", pool_wall_s=pool_wall, ranks=ranks,
          single_device_wall_s=wall1, all_equal_pinned=True)
@@ -1492,7 +1750,8 @@ def main() -> int:
     from zigflac_tpu_torch.native import md5
     from zigflac_tpu_torch import decoder
     from zigflac_tpu_torch.crc import crc16 as crc16_bytes
-    from zigflac_tpu_torch.ops import _build, analyze, bitpack, crc16, deposit, lpc, synth
+    from zigflac_tpu_torch.ops import (_build, analyze, bitpack, crc16, deposit, lpc, symbols,
+                                       synth)
     from zigflac_tpu_torch.utils import stages
     from zigflac_tpu_torch.wav import WavReader, write_wav
 
@@ -1572,19 +1831,24 @@ def main() -> int:
         raise AssertionError("the oversized-row case fits shared memory")
     compare_np(d_cum, val, nbv, big)  # global-memory branch
 
-    def batch_stream(wav, cfg, tier):
+    sym_batches = {}  # the plans, for phase 2-symbols
+
+    def batch_stream(name, wav, cfg, tier):
         """The symbol stream of a wav's first 1024 full frames, and the
-        word budget of capacity tier ``tier`` (None: the exact tier)."""
+        word budget of capacity tier ``tier`` (None: the exact tier); the
+        plan is kept in sym_batches under ``name``."""
         r = WavReader.from_bytes(wav)
         s = r.planar_samples()
         n = min(1024, s.shape[1] // BLOCK)
         frames = torch.from_numpy(
             s[:, : n * BLOCK].reshape(2, n, BLOCK).transpose(1, 0, 2).copy()).to(dev)
-        hs, max_words, _ = pl.compact_shape(cfg, r.bit_depth, 2, BLOCK, RATE, tier, n)
+        hs, max_words, _ = pl.compact_shape(cfg, r.bit_depth, 2, BLOCK, r.sample_rate, tier, n)
         plan = analyze.plan_frames(frames, r.bit_depth, cfg)
+        fns = torch.arange(n, device=dev)
         dep_cum, _, dep_val, dep_nbv = bitpack.frame_symbol_stream(
-            plan, torch.arange(n, device=dev), hs, BLOCK, cfg.max_rice_order,
-            analyze.lpc_order_of(cfg), cfg.lpc_precision)
+            plan, fns, hs, BLOCK, cfg.max_rice_order, analyze.lpc_order_of(cfg),
+            cfg.lpc_precision)
+        sym_batches[name] = (plan, fns, hs, analyze.lpc_order_of(cfg), cfg.lpc_precision)
         return dep_cum.to(torch.int32), dep_val, dep_nbv.to(torch.int32), max_words, plan
 
     crc_err = 0
@@ -1628,7 +1892,7 @@ def main() -> int:
     for name, wav, cfg, tier in (("config1", wav1, cfg1, 0), ("config3", wav3, cfg_lpc, 0),
                                  ("depth32_lpc", wav32, cfg_lpc, 0),
                                  ("noise32_exact", wav_noise, cfg1, None)):
-        dc, dv, dn, mw, plan = batch_stream(wav, cfg, tier)
+        dc, dv, dn, mw, plan = batch_stream(name, wav, cfg, tier)
         compare(dc, dv, dn, mw)
         words = deposit.deposit_words(dc, dv, dn, mw)
         byte_len = (dc[:, -1].to(torch.int64) + 7) >> 3
@@ -1692,6 +1956,14 @@ def main() -> int:
         "bound_ms": crc_b[1], "bound_by": crc_b[2], "library_ms": None}
     del crc_timed, words, byte_len, scratch
 
+    # -- phase 2-symbols: the watch cases and the batches' real plans ---------
+    wav2_in = bench_wav(write_wav, CONFIG2_SAMPLES, depth=24, rate=CONFIG2_RATE)
+    batch_stream("config2", wav2_in, cfg1, 0)
+    symbols_entry = phase2_symbols(SimpleNamespace(
+        torch=torch, dev=dev, zt=zt, symbols=symbols, bitpack=bitpack, analyze=analyze),
+        sym_batches)
+    del sym_batches
+
     # -- phase 2-analysis: the planes analyze_planes hands the kernel ---------
     def batch_planes(wav, depth):
         """One batch's (planes, wide, max_param) as plan_frames_stereo makes
@@ -1709,8 +1981,7 @@ def main() -> int:
 
     an_batches = {"config1": batch_planes(wav1, 16), "config3": batch_planes(wav3, 16),
                   "depth32": batch_planes(wav32, 32),
-                  "config2": batch_planes(bench_wav(write_wav, CONFIG2_SAMPLES, depth=24,
-                                                    rate=CONFIG2_RATE), 24)}
+                  "config2": batch_planes(wav2_in, 24)}
     l_order, l_res, *_ = lpc.analyze_lpc(an_batches["config3"][0][0], cfg_lpc.lpc_order,
                                          cfg_lpc.lpc_precision)
     fixed_entry, rice_entry = phase2_analysis(
@@ -1718,13 +1989,15 @@ def main() -> int:
     del an_batches, l_order, l_res
     # the encode refuses a partition order above 8 as the JAX package does
     # (ValueError), before any device work
-    counts = (analyze.KERNEL_LAUNCHES, deposit.KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES)
+    counts = (analyze.KERNEL_LAUNCHES, symbols.KERNEL_LAUNCHES, deposit.KERNEL_LAUNCHES,
+              crc16.KERNEL_LAUNCHES)
     try:
         zt.encode_wav_bytes(wav3, config=replace(cfg1, max_rice_order=12), device="cuda")
         raise AssertionError("max_rice_order 12 at block 4096 was not refused")
     except ValueError:
         pass
-    if counts != (analyze.KERNEL_LAUNCHES, deposit.KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES):
+    if counts != (analyze.KERNEL_LAUNCHES, symbols.KERNEL_LAUNCHES, deposit.KERNEL_LAUNCHES,
+                  crc16.KERNEL_LAUNCHES):
         raise AssertionError("the refused encode launched a kernel")
 
     # the port's first-min / last-min tie rules on the card
@@ -1736,33 +2009,36 @@ def main() -> int:
     # the CPU port's bytes for phase 6's noise batch, made before any counted path
     noise_cpu = zt.encode_wav_bytes(wav_noise, device="cpu")
 
-    launches = {"total": 0, "global_rows": 0, "analysis": 0, "rice": 0, "crc": 0}
+    launches = {"total": 0, "global_rows": 0, "analysis": 0, "rice": 0, "crc": 0, "symbols": 0}
 
     def counted(path, fn, lpc=False):
         """Run one encode path with the counts at 0 before it; it must
-        launch the analysis, deposit and CRC kernels (and, with ``lpc``, the
-        Rice kernel) and never call a plain version."""
-        for m in (deposit, synth, analyze, crc16):
+        launch the analysis, symbols, deposit and CRC kernels (and, with
+        ``lpc``, the Rice kernel) and never call a plain version."""
+        for m in (deposit, synth, analyze, crc16, symbols):
             m.reset_counts()
         out = fn()
         torch.cuda.synchronize()
         k, g, p = deposit.KERNEL_LAUNCHES, deposit.GLOBAL_ROW_LAUNCHES, deposit.PLAIN_CALLS
         ka, kr, kc = analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES
-        plain = p + synth.PLAIN_CALLS + analyze.PLAIN_CALLS + crc16.PLAIN_CALLS
-        if k == 0 or ka == 0 or kc == 0 or (lpc and kr == 0) or plain != 0:
-            raise AssertionError(f"{path}: {k} deposit, {ka} analysis, {kr} Rice and {kc} CRC "
-                                 f"launches, {plain} plain calls")
+        ks = symbols.KERNEL_LAUNCHES
+        plain = (p + synth.PLAIN_CALLS + analyze.PLAIN_CALLS + crc16.PLAIN_CALLS
+                 + symbols.PLAIN_CALLS)
+        if k == 0 or ka == 0 or kc == 0 or ks == 0 or (lpc and kr == 0) or plain != 0:
+            raise AssertionError(f"{path}: {k} deposit, {ka} analysis, {ks} symbols, {kr} Rice "
+                                 f"and {kc} CRC launches, {plain} plain calls")
         launches["total"] += k
         launches["global_rows"] += g
         launches["analysis"] += ka
         launches["rice"] += kr
         launches["crc"] += kc
+        launches["symbols"] += ks
         return out, k, g
 
     def counted_decode(path, fn):
         """Run one decode path with the counts at 0 before it; it must
         launch the synthesis kernel and never call a plain version."""
-        for m in (deposit, synth, analyze, crc16):
+        for m in (deposit, synth, analyze, crc16, symbols):
             m.reset_counts()
         out = fn()
         torch.cuda.synchronize()
@@ -1997,7 +2273,8 @@ def main() -> int:
     fixed_entry["launches"] = launches["analysis"]
     rice_entry["launches"] = launches["rice"]
     crc_entry["launches"] = launches["crc"]
-    print(json.dumps({"kernels": [synth_entry, fixed_entry, rice_entry, crc_entry, {
+    symbols_entry["launches"] = launches["symbols"]
+    print(json.dumps({"kernels": [synth_entry, fixed_entry, rice_entry, symbols_entry, crc_entry, {
         "name": "deposit_words",
         "route": "cuda",
         "source": "zigflac_tpu_torch/csrc/deposit.cu",

@@ -1,5 +1,5 @@
-"""The port on a CUDA card: the deposit, synthesis, analysis and CRC-16
-kernels against their plain versions, and whole encodes and decodes on the
+"""The port on a CUDA card: the deposit, synthesis, analysis, CRC-16 and
+frame symbols kernels against their plain versions, and whole encodes and decodes on the
 card against the CPU path. Every test skips where
 torch.cuda.is_available() is false. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
@@ -667,20 +667,21 @@ def test_kernels_refuse_what_they_do_not_take(rng):
 
 
 def test_encode_on_card_launches_every_kernel(rng):
-    """An encode on the card goes through the analysis, deposit and CRC
-    kernels, and an LPC encode through the Rice kernel, with no plain
+    """An encode on the card goes through the analysis, symbols, deposit and
+    CRC kernels, and an LPC encode through the Rice kernel, with no plain
     version called; the tail too."""
-    from zigflac_tpu_torch.ops import analyze, crc16
+    from zigflac_tpu_torch.ops import analyze, crc16, symbols
 
     wav = _wav(rng, 2 * 4096 + 1972)
     for cfg, rice in ((EncoderConfig(), 0), (EncoderConfig(prediction="lpc"), 2)):
-        for m in (analyze, crc16, deposit):
+        for m in (analyze, crc16, deposit, symbols):
             m.reset_counts()
         got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda")
         counts = (analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES,
-                  deposit.KERNEL_LAUNCHES)
-        assert counts == (2, rice, 2, 2)
-        assert analyze.PLAIN_CALLS == crc16.PLAIN_CALLS == deposit.PLAIN_CALLS == 0
+                  deposit.KERNEL_LAUNCHES, symbols.KERNEL_LAUNCHES)
+        assert counts == (2, rice, 2, 2, 2)
+        assert (analyze.PLAIN_CALLS == crc16.PLAIN_CALLS == deposit.PLAIN_CALLS
+                == symbols.PLAIN_CALLS == 0)
         assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
 
 
@@ -701,3 +702,80 @@ def test_plan_frames_on_card_does_not_synchronize(rng):
     want = analyze.plan_frames(frames.cpu(), 16, EncoderConfig())
     for name in analyze.FrameWirePlan._fields:
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+# -- the frame symbols kernel ----------------------------------------------------------
+
+
+def _smoke():
+    """chip_smoke.py's symbols watch list and plan generator (it imports no
+    jax)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _symbols_case(smoke, case):
+    from zigflac_tpu_torch.ops import analyze
+    from zigflac_tpu_torch.ops.header import header_static
+
+    n, w, b, mro, lpc_order, depth, side, wasted = case
+    rng = np.random.default_rng(b * 31 + w * 7 + mro + lpc_order + depth)
+    plan = analyze.FrameWirePlan(*(t.cuda() for t in smoke.synthetic_plan(
+        rng, n, w, b, mro, lpc_order, depth, side, wasted)))
+    fns = torch.tensor([smoke.SYMBOL_FRAME_NUMBERS[(i * 3) % len(smoke.SYMBOL_FRAME_NUMBERS)]
+                        for i in range(n)], device="cuda")
+    hs = header_static(b, smoke.SYMBOL_RATES[b % len(smoke.SYMBOL_RATES)], depth)
+    return plan, fns, hs, b, mro, lpc_order, 15
+
+
+@pytest.mark.parametrize("index", range(14))
+def test_symbols_kernel_matches_plain(rng, index):
+    """zf_frame_symbols == bitpack.frame_symbol_stream, every column, on the
+    smoke's watch list (SYMBOL_WATCH); one launch, no plain call."""
+    from zigflac_tpu_torch.ops import bitpack, symbols
+
+    smoke = _smoke()
+    assert len(smoke.SYMBOL_WATCH) == 14
+    args = _symbols_case(smoke, smoke.SYMBOL_WATCH[index])
+    symbols.reset_counts()
+    got = symbols.frame_symbols(*args)
+    assert (symbols.KERNEL_LAUNCHES, symbols.PLAIN_CALLS) == (1, 0)
+    d, tb, v, nb = bitpack.frame_symbol_stream(*args)
+    for g, w in zip(got, (d.to(torch.int32), tb, v, nb.to(torch.int32))):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_symbols_kernel_does_not_synchronize(rng):
+    """The wrapper reads shapes, not values: it runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from zigflac_tpu_torch.ops import symbols
+
+    args = _symbols_case(_smoke(), _smoke().SYMBOL_WATCH[0])
+    symbols.frame_symbols(*args)  # the kernel built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        symbols.frame_symbols(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_symbols_kernel_raises_without_the_library(rng, monkeypatch):
+    """A CUDA plan with no kernel library raises: no fall back to the plain
+    version."""
+    from zigflac_tpu_torch.ops import _build, symbols
+
+    def missing():
+        raise RuntimeError("CUDA toolkit not found")
+
+    args = _symbols_case(_smoke(), _smoke().SYMBOL_WATCH[1])
+    monkeypatch.setattr(_build, "library", missing)
+    symbols.reset_counts()
+    with pytest.raises(RuntimeError, match="toolkit"):
+        symbols.frame_symbols(*args)
+    assert (symbols.KERNEL_LAUNCHES, symbols.PLAIN_CALLS) == (0, 0)

@@ -106,6 +106,9 @@ def library() -> ctypes.CDLL:
     lib.zf_rice_estimate.restype = ctypes.c_int
     lib.zf_crc16_frames.argtypes = [ptr, ptr, i64, i64, i32, ptr, ptr]
     lib.zf_crc16_frames.restype = ctypes.c_int
+    lib.zf_frame_symbols.argtypes = [ptr] * 12 + [i32] + [i64] * 3 + [ptr] + [i64] * 13 + [
+        ptr] * 5
+    lib.zf_frame_symbols.restype = ctypes.c_int
     lib.zf_error_string.argtypes = [ctypes.c_int]
     lib.zf_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -17,6 +17,10 @@ deposit (``ops/deposit.py``: a CUDA kernel on the card, its plain version on
 the CPU) ORs every value into the frame's MSB-first u32 words. Masked-off
 symbols have nb = 0 and deposit nothing. Words travel as int32 holding the
 u32 bit pattern.
+
+The functions here up to ``frame_symbol_stream`` are the symbols stage's
+plain version; ``pack_frames`` takes the stage through ``ops/symbols.py``,
+which launches the kernel on a CUDA plan.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from . import deposit
+from . import deposit, symbols
 from .analyze import FrameWirePlan, bit_length, zigzag_u32
 from .header import MAX_HEADER_BYTES, HeaderStatic, build_headers
 from ..utils import stages
@@ -246,14 +250,12 @@ def pack_frames(
     total_bits int64 [N]). Deposits past ``max_words`` are dropped; the
     caller sees the frame's size in ``total_bits`` and re-encodes at a
     larger capacity. ``lpc_order`` is ``analyze.lpc_order_of(config)``."""
-    dep_cum, total_bits, dep_val, dep_nbv = frame_symbol_stream(
+    dep_cum, total_bits, dep_val, dep_nbv = symbols.frame_symbols(
         plan, frame_numbers, hstatic, block_size, max_rice_order,
         lpc_order, lpc_precision,
     )
     stages.mark("symbols")
-    words = deposit.deposit_words(
-        dep_cum.to(torch.int32), dep_val, dep_nbv.to(torch.int32), max_words
-    )
+    words = deposit.deposit_words(dep_cum, dep_val, dep_nbv, max_words)
     stages.mark("deposit")
     return words, total_bits
 

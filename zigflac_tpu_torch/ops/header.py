@@ -110,6 +110,18 @@ def utf8_frame_number_bytes(fn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return torch.stack(cols, dim=-1), length
 
 
+# CRC8_TABLE on each device it was asked for: one host copy a device, not
+# one a batch (a pageable copy waits for the card)
+_CRC8_TABLES: dict = {}
+
+
+def _crc8_table(dev: torch.device) -> torch.Tensor:
+    table = _CRC8_TABLES.get(dev)
+    if table is None:
+        table = _CRC8_TABLES[dev] = torch.from_numpy(CRC8_TABLE.astype("int64")).to(dev)
+    return table
+
+
 def build_headers(
     frame_numbers: torch.Tensor,
     channels_code: torch.Tensor,
@@ -135,7 +147,7 @@ def build_headers(
     crc_pos = tail_start + len(static.tail_bytes)
 
     # CRC-8 over bytes [0, crc_pos): the plain table form
-    table = torch.from_numpy(CRC8_TABLE.astype("int64")).to(dev)
+    table = _crc8_table(dev)
     crc = torch.zeros(n, dtype=torch.int64, device=dev)
     for j in range(MAX_HEADER_BYTES - 1):
         crc = torch.where(j < crc_pos, table[crc ^ b[:, j]], crc)
