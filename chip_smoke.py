@@ -30,11 +30,14 @@ Phases:
      (bitpack.frame_symbol_stream), dep_cum, total_bits, val and nbv all
      equal, on synthetic plans of its watch list (SYMBOL_WATCH: blocks of 1
      to 65,535 samples, 1-8 channels, every subframe kind, escapes and the
-     N1 fallback, Rice codes of thousands of bits, frames past 2^32 bits,
-     LPC orders up to 32, wasted bits, 33-bit side planes, max_rice_order
-     0-12, every frame-number length and uncommon rates), on the analysis's
-     plans of signals at depths 8-32 and 1-8 channels and of ROADMAP's N1
-     input, and on the real plans of the batches above and of config 2;
+     N1 fallback, Rice codes of thousands of bits, frames past 2^32 bits
+     with their two widest codes inside a warp's run of columns, across two
+     warps' runs and across two tiles, channels whose columns are not a
+     multiple of 32, LPC orders up to 32, wasted bits, 33-bit side planes,
+     max_rice_order 0-12, every frame-number length and uncommon rates), on
+     the analysis's plans of signals at depths 8-32 and 1-8 channels and of
+     ROADMAP's N1 input, and on the real plans of the batches above and of
+     config 2;
      config 1's batch timed in turns with the plain version, beside
      symbols_bound.
      2-analysis: the analysis kernels against their plain versions, every
@@ -394,7 +397,17 @@ SYMBOL_WATCH = [
     (4, 2, 2304, 12, 0, 16, True, False),
     (4, 2, 1024, 8, 8, 32, True, True),
     (2, 2, 65535, 8, 32, 24, True, False),
+    # channels of 1,015 and 23 columns (not multiples of 32), tiles ending
+    # inside groups; an LPC preamble over three rounds; int64 planes past a tile
+    (3, 3, 1000, 8, 0, 16, False, False),
+    (4, 5, 12, 8, 0, 16, False, False),
+    (3, 6, 300, 8, 32, 24, False, True),
+    (2, 2, 1025, 8, 0, 32, True, False),
 ]
+# (block, first sample) of long_code_plan: two ~2^32-bit codes inside a
+# warp's run, across two warps' runs (frame columns 127 and 128) and across
+# two tiles (columns 1023 and 1024)
+SYMBOL_LONG_CODES = [(256, 0), (1024, 103), (1024, 996)]
 # frame numbers of every UTF-8 length, and sample rates in RATE_CODES and out
 # (8-bit, 16-bit and /10 tail bytes, and 0)
 SYMBOL_FRAME_NUMBERS = [0, 0x7F, 0x80, 1 << 11, 1 << 16, 1 << 21, 1 << 26, (1 << 31) - 1]
@@ -461,6 +474,23 @@ def synthetic_plan(rng, n, w, b, max_rice_order=8, lpc_order=0, depth=16, side=F
         residuals=torch.from_numpy(res.astype(np.int32)),
         qcoeffs=t(rng.integers(-(1 << (prec - 1)), 1 << (prec - 1), (w, n, 32))),
         qshift=t(rng.integers(0, 16, (w, n))), wasted=t(shaved))
+
+
+def long_code_plan(b, at):
+    """A synthetic plan of 16 frames of 2 channels of ``b`` samples with
+    4-bit params only (max_rice_order 2), whose frame 0, channel 0 is fixed
+    order 0 in one partition of param 0 with the two widest zigzags at
+    samples ``at`` and ``at + 1``: two codes of ~2^32 bits, so the frame's
+    sum passes 2^32 and dep_cum wraps as the plain version's int32."""
+    import torch
+
+    plan = synthetic_plan(np.random.default_rng(0x5E), 16, 2, b, 2, methods=(0,))
+    for name, v in (("kind", 2), ("order", 0), ("method", 0), ("part_order", 0)):
+        getattr(plan, name)[0, 0] = v
+    plan.params[0, 0, 0] = 0
+    plan.residuals[0, 0, at:at + 2] = torch.tensor([-(1 << 31), (1 << 31) - 1],
+                                                   dtype=torch.int32)
+    return plan
 
 
 def ptxas_of(kernels):
@@ -977,9 +1007,11 @@ def phase2_symbols(env, batches):
     total_bits, val and nbv all equal: synthetic plans of the watch list
     (SYMBOL_WATCH: blocks of 1 to 65,535 samples, 1-8 channels, every
     subframe kind, escapes and the N1 fallback, Rice codes of thousands of
-    bits and frames past 2^32 bits, LPC orders up to 32, wasted bits, 33-bit
-    side planes, max_rice_order 0-12, 4- and 5-bit params) with every
-    frame-number length, channel code and uncommon rate; the analysis's
+    bits, channels whose columns are not a multiple of 32, LPC orders up to
+    32, wasted bits, 33-bit side planes, max_rice_order 0-12, 4- and 5-bit
+    params) with every frame-number length, channel code and uncommon rate;
+    frames past 2^32 bits (SYMBOL_LONG_CODES: two ~2^32-bit codes inside a
+    warp's run, across two warps' runs, across two tiles); the analysis's
     plans of signals at depths 8-32, 1-8 channels and stereo_auto, fixed and
     LPC (order 32, precision 15), wasted bits, 4-bit params, independent
     channels' strided planes and a 33-bit side plane, and of ROADMAP's N1
@@ -1019,16 +1051,14 @@ def phase2_symbols(env, batches):
         hs = header_static(b, SYMBOL_RATES[b % len(SYMBOL_RATES)], depth)
         compare(f"watch B{b} w{w} mro{mro} lpc{lpc_order} d{depth}", plan, fns, hs, b, mro,
                 lpc_order, 15)
-    # 4-bit params only, and one frame of two ~2^32-bit codes (sums past 2^32)
-    plan = synthetic_plan(np.random.default_rng(0x5E), 16, 2, 256, 2, methods=(0,))
-    for name, v in (("kind", 2), ("order", 0), ("method", 0), ("part_order", 0)):
-        getattr(plan, name)[0, 0] = v
-    plan.params[0, 0, 0] = 0
-    plan.residuals[0, 0, :2] = torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32)
-    _, total, val, nbv = compare("4-bit params, 2^32-bit codes", on_card(plan), list(range(16)),
-                                 header_static(256, RATE, 16), 256, 2, 0, 15)
-    if not (int(total.max()) >= 1 << 32 and bool(((val == 30) & (nbv == 4)).any())):
-        raise AssertionError("symbols watch: no frame past 2^32 bits or no N1 fallback")
+    # 4-bit params only, and one frame of two ~2^32-bit codes (sums past
+    # 2^32) inside a warp's run, across two warps' runs and across two tiles
+    for b, at in SYMBOL_LONG_CODES:
+        _, total, val, nbv = compare(f"4-bit params, 2^32-bit codes at B{b} sample {at}",
+                                     on_card(long_code_plan(b, at)), list(range(16)),
+                                     header_static(b, RATE, 16), b, 2, 0, 15)
+        if not (int(total.max()) >= 1 << 32 and bool(((val == 30) & (nbv == 4)).any())):
+            raise AssertionError("symbols watch: no frame past 2^32 bits or no N1 fallback")
     rng = np.random.default_rng(0x51)
     for depth, ch, fields, anti in (
             (8, 1, dict(channels=1, block_size=1152), False),

@@ -733,14 +733,14 @@ def _symbols_case(smoke, case):
     return plan, fns, hs, b, mro, lpc_order, 15
 
 
-@pytest.mark.parametrize("index", range(14))
+@pytest.mark.parametrize("index", range(18))
 def test_symbols_kernel_matches_plain(rng, index):
     """zf_frame_symbols == bitpack.frame_symbol_stream, every column, on the
     smoke's watch list (SYMBOL_WATCH); one launch, no plain call."""
     from zigflac_tpu_torch.ops import bitpack, symbols
 
     smoke = _smoke()
-    assert len(smoke.SYMBOL_WATCH) == 14
+    assert len(smoke.SYMBOL_WATCH) == 18
     args = _symbols_case(smoke, smoke.SYMBOL_WATCH[index])
     symbols.reset_counts()
     got = symbols.frame_symbols(*args)
@@ -748,6 +748,26 @@ def test_symbols_kernel_matches_plain(rng, index):
     d, tb, v, nb = bitpack.frame_symbol_stream(*args)
     for g, w in zip(got, (d.to(torch.int32), tb, v, nb.to(torch.int32))):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("index", range(3))
+def test_symbols_kernel_long_codes(rng, index):
+    """Frames past 2^32 bits (the smoke's SYMBOL_LONG_CODES): two ~2^32-bit
+    codes inside a warp's run, across two warps' runs and across two tiles,
+    under 4-bit params with the N1 fallback; kernel == plain, every column."""
+    from zigflac_tpu_torch.ops import analyze, bitpack, symbols
+    from zigflac_tpu_torch.ops.header import header_static
+
+    smoke = _smoke()
+    assert len(smoke.SYMBOL_LONG_CODES) == 3
+    b, at = smoke.SYMBOL_LONG_CODES[index]
+    plan = analyze.FrameWirePlan(*(t.cuda() for t in smoke.long_code_plan(b, at)))
+    args = (plan, torch.arange(16, device="cuda"), header_static(b, 44100, 16), b, 2, 0, 15)
+    got = symbols.frame_symbols(*args)
+    d, tb, v, nb = bitpack.frame_symbol_stream(*args)
+    for g, w in zip(got, (d.to(torch.int32), tb, v, nb.to(torch.int32))):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(got[1].max()) >= 1 << 32
 
 
 def test_symbols_kernel_does_not_synchronize(rng):

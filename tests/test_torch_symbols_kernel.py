@@ -1,16 +1,18 @@
 """The frame symbols kernel's arithmetic (zigflac_tpu_torch/csrc/symbols_steps.cuh)
 built for the host with g++, behind a loop that runs csrc/symbols.cu's block
-(the header, then each wire channel's partition keys and columns in turn,
-the widths summed in 64 bits) one frame after another, called through the
-wrapper's own argument marshalling (ops/symbols.launch). It is held
+(the header, the groups' fields, the escapes' keys, then the column tiles
+with their warps, rounds and lanes in turn, the widths scanned in 32 bits
+and summed in 64) one frame after another, called through the wrapper's own
+argument marshalling (ops/symbols.launch). It is held
 against the port's plain version (bitpack.frame_symbol_stream) and the JAX
 package's (ops/bitpack.frame_symbol_stream) on plans made from a seed with
 numpy, synthetic and real: escapes, the N1 fallback, Rice codes of
 thousands of bits, 32-bit stream ends, every frame-number length, uncommon
 rates and block sizes, blocks of 1 to 65,535 samples, 1-8 channels, LPC
-orders 1-32 and the 33-bit side plane; then the wrapper's routing and
-checks, and all 22 pinned corpus encodes with the harness in the kernel's
-place.
+orders 1-32 and the 33-bit side plane, codes of ~2^32 bits across warps'
+runs and tiles; the division by multiply-high for every block size; then
+the wrapper's routing and checks, and all 22 pinned corpus encodes with the
+harness in the kernel's place.
 
 Tolerance: exact equality of every column of dep_cum, val and nbv, and of
 total_bits."""
@@ -43,53 +45,101 @@ from zigflac_tpu_torch.ops.header import header_static
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "zigflac_tpu_torch" / "csrc"
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (SYMBOL_FRAME_NUMBERS as FRAME_NUMBERS, SYMBOL_RATES as RATES,  # noqa: E402
-                        SYMBOL_WATCH as WATCH, synthetic_plan)
+from chip_smoke import (SYMBOL_FRAME_NUMBERS as FRAME_NUMBERS,  # noqa: E402
+                        SYMBOL_LONG_CODES as LONG_CODES, SYMBOL_RATES as RATES,
+                        SYMBOL_WATCH as WATCH, long_code_plan, synthetic_plan)
 
-# csrc/symbols.cu's block with its work done in order: the header, then per
-# channel the largest key of each partition and the columns, the running
-# 64-bit sum stored in its low 32 bits. Same C signature as zf_frame_symbols.
+# csrc/symbols.cu's block with its warps and lanes in turn: phase one (warp
+# 0's header a byte a lane and lane 0's CRC-8, the channels, the groups'
+# fields), the escapes' keys and fields, then the tiles: kRounds rounds of 32
+# neighbouring columns a warp (rounds aligned to 32 elements of the outputs,
+# the frame's first columns in a partial round), each round's widths scanned
+# in 32 bits, the warps' totals before each warp and the carry from tile to
+# tile mod 2^32, each lane's widths summed in 64 bits. Same C signature as
+# zf_frame_symbols.
 HOST_HARNESS = r"""
+#include <algorithm>
+#include <cassert>
 #include "symbols_steps.cuh"
 
 static constexpr ZfCrc8Table kCrc8 = zf_crc8_make_table();
+static constexpr int kThreads = 256, kWarps = kThreads / 32, kRounds = 4;  // symbols.cu's
+static constexpr int32_t kTile = kThreads * kRounds;
 
 template <typename T>
-static void frames(const int64_t* fns, const int64_t* codes, const int64_t* const* fld,
-                   const int64_t* params, const int64_t* qcoeffs, const T* planes, int64_t pl_w,
-                   int64_t pl_n, int64_t pl_b, const int32_t* res, int64_t rs_w, int64_t rs_n,
-                   int64_t rs_b, int64_t n, const ZfSymLayout& L, const ZfSymHeaderStatic& hs,
-                   int32_t* dep_cum, int64_t* val, int32_t* nbv, int64_t* total_bits) {
-  for (int64_t f = 0; f < n; ++f) {
-    int64_t sum = 0;
-    auto put = [&](int64_t col, const ZfSym& s) {
-      sum += s.nb;
-      dep_cum[f * L.s + col] = (int32_t)(uint32_t)(uint64_t)sum;
-      val[f * L.s + col] = s.val;
-      nbv[f * L.s + col] = s.nbv;
-    };
-    const ZfSymHeader h = zf_sym_header(fns[f], codes[f], hs, kCrc8);
-    for (int64_t j = 0; j < kZfSymHeaderCols; ++j) put(j, zf_sym_header_column(h, j));
-    for (int64_t c = 0; c < L.w; ++c) {
-      const int64_t wn = c * n + f;
-      const ZfSymChannel ch = {fld[0][wn], fld[1][wn], fld[2][wn], fld[3][wn],
-                               fld[4][wn], fld[5][wn], fld[6][wn]};
-      const T* plane = planes + c * pl_w + f * pl_n;
-      const int32_t* r = res + c * rs_w + f * rs_n;
-      uint32_t keys[kZfSymParamCols] = {};
-      const uint32_t psize = (uint32_t)(L.b >> ch.part_order);
-      if (zf_sym_pred(ch) && psize > 0)
-        for (int64_t i = 0; i < L.b; ++i) {
-          const uint32_t p = (uint32_t)i / psize, k = zf_sym_key(r[i * rs_b]);
-          keys[p] = k > keys[p] ? k : keys[p];
-        }
-      for (int64_t col = 0; col < L.chan_cols; ++col)
-        put(kZfSymHeaderCols + c * L.chan_cols + col,
-            zf_sym_column(L, ch, col, plane, pl_b, r, rs_b, params + wn * kZfSymParamCols,
-                          qcoeffs + wn * kZfSymCoeffCols, keys));
+static void frame(const ZfSymArgs<T>& a, int64_t f) {
+  const ZfSymLayout& L = a.lay;
+  ZfSymHeader hdr = {};
+  ZfSymChannel<T> chan[kZfSymMaxChannels];
+  static ZfSymGroup groups[kZfSymMaxChannels * kZfSymParamCols];
+  static uint32_t keys[kZfSymMaxChannels * kZfSymParamCols];
+  const int64_t fn = a.frame_numbers[f];
+  for (int lane = 0; lane < kZfSymHeaderCols; ++lane)
+    hdr.bytes[lane] = zf_sym_header_byte(lane, fn, a.channels_code[f], a.hs);
+  zf_sym_header_crc(hdr, zf_sym_header_crc_pos(fn, a.hs), kCrc8);
+  for (int c = 0; c < L.w; ++c) chan[c] = zf_sym_channel(a, c, f);
+  bool esc = false;
+  for (int t = 0; t < kThreads; ++t)
+    esc |= zf_sym_group_fields(a, f, chan, groups, keys, false, t, kThreads);
+  if (esc) {
+    for (int c = 0; c < L.w; ++c) {
+      const ZfSymChannel<T>& ch = chan[c];
+      if (!zf_sym_pred(ch.kind)) continue;
+      const int64_t wn = c * a.n + f, esc_param = ((int64_t)1 << (4 + ch.method)) - 1;
+      for (uint32_t i = 0; i < (uint32_t)L.b; ++i) {
+        const uint32_t p = (L.g == 1 ? i : zf_sym_div(i, L.d_g)) >> ch.ds;
+        if (groups[c * kZfSymParamCols + (p << ch.ds)].y != kZfSymPending) continue;
+        assert(a.params[wn * kZfSymParamCols + p] == esc_param);
+        uint32_t& key = keys[c * kZfSymParamCols + p];
+        key = std::max(key, zf_sym_key(ch.res[(int64_t)i * a.rs_b]));
+      }
     }
-    total_bits[f] = sum;
+    for (int t = 0; t < kThreads; ++t)
+      zf_sym_group_fields(a, f, chan, groups, keys, true, t, kThreads);
   }
+  const int64_t row = f * L.s;
+  const uint32_t s = (uint32_t)L.s, lead = (uint32_t)row & 31u;
+  uint32_t carry = 0;
+  static uint64_t bits[kThreads];
+  static uint32_t incl[kThreads][kRounds];
+  std::fill(bits, bits + kThreads, 0);
+  for (int32_t tile = -(int32_t)lead; tile < (int32_t)s; tile += kTile) {
+    uint32_t warp_sum[kWarps];
+    for (int warp = 0; warp < kWarps; ++warp) {
+      uint32_t run = 0;
+      for (int j = 0; j < kRounds; ++j) {
+        uint32_t x = 0;  // the round's inclusive scan, lane by lane
+        for (int lane = 0; lane < 32; ++lane) {
+          const uint32_t col = (uint32_t)tile + warp * (32 * kRounds) + lane + 32 * j;
+          ZfSym sym = zf_sym_make(0, 0, 0);
+          if (col < s) {
+            sym = zf_sym_frame_column(a, f, col, hdr, chan, groups);
+            a.val[row + col] = (int64_t)sym.val;
+            a.nbv[row + col] = (int32_t)sym.nbv;
+          }
+          bits[warp * 32 + lane] += sym.nb;
+          x += (uint32_t)sym.nb;
+          incl[warp * 32 + lane][j] = run + x;
+        }
+        run += x;
+      }
+      warp_sum[warp] = run;
+    }
+    uint32_t total = 0;
+    for (int warp = 0; warp < kWarps; ++warp) {
+      const uint32_t before = carry + total;
+      for (int lane = 0; lane < 32; ++lane)
+        for (int j = 0; j < kRounds; ++j) {
+          const uint32_t col = (uint32_t)tile + warp * (32 * kRounds) + lane + 32 * j;
+          if (col < s) a.dep_cum[row + col] = (int32_t)(before + incl[warp * 32 + lane][j]);
+        }
+      total += warp_sum[warp];
+    }
+    carry += total;
+  }
+  uint64_t total = 0;
+  for (int t = 0; t < kThreads; ++t) total += bits[t];
+  a.total_bits[f] = (int64_t)total;
 }
 
 extern "C" int zf_frame_symbols_host(
@@ -101,27 +151,64 @@ extern "C" int zf_frame_symbols_host(
     int64_t max_rice_order, int64_t lpc_order, int64_t lpc_precision, int64_t byte2,
     int64_t depth_code, int64_t tail, int64_t ntail, void* dep_cum, void* val, void* nbv,
     void* total_bits, void*) {
-  const ZfSymLayout L = zf_sym_layout(w, b, max_rice_order, lpc_order, lpc_precision);
+  const ZfSymLayout lay = zf_sym_layout(w, b, max_rice_order, lpc_order, lpc_precision);
+  if (w > kZfSymMaxChannels || ((int64_t)1 << lay.po_top) > kZfSymParamCols) return 1;
   const ZfSymHeaderStatic hs = {byte2, depth_code, tail, ntail};
-  const int64_t* fld[7] = {(const int64_t*)kind, (const int64_t*)order,
-                           (const int64_t*)method, (const int64_t*)part_order,
-                           (const int64_t*)sample_size, (const int64_t*)qshift,
-                           (const int64_t*)wasted};
-  if (planes_wide)
-    frames((const int64_t*)frame_numbers, (const int64_t*)channels_code, fld,
-           (const int64_t*)params, (const int64_t*)qcoeffs, (const int64_t*)planes, pl_w, pl_n,
-           pl_b, (const int32_t*)residuals, rs_w, rs_n, rs_b, n, L, hs, (int32_t*)dep_cum,
-           (int64_t*)val, (int32_t*)nbv, (int64_t*)total_bits);
-  else
-    frames((const int64_t*)frame_numbers, (const int64_t*)channels_code, fld,
-           (const int64_t*)params, (const int64_t*)qcoeffs, (const int32_t*)planes, pl_w, pl_n,
-           pl_b, (const int32_t*)residuals, rs_w, rs_n, rs_b, n, L, hs, (int32_t*)dep_cum,
-           (int64_t*)val, (int32_t*)nbv, (int64_t*)total_bits);
+#define ZF_SYM_ARGS(T)                                                                      \
+  ZfSymArgs<T> {                                                                            \
+    (const int64_t*)frame_numbers, (const int64_t*)channels_code, (const int64_t*)kind,     \
+        (const int64_t*)order, (const int64_t*)method, (const int64_t*)part_order,          \
+        (const int64_t*)sample_size, (const int64_t*)qshift, (const int64_t*)wasted,        \
+        (const int64_t*)params, (const int64_t*)qcoeffs, (const T*)planes, pl_w, pl_n,      \
+        pl_b, (const int32_t*)residuals, rs_w, rs_n, rs_b, n, lay, hs, (int32_t*)dep_cum,   \
+        (int64_t*)val, (int32_t*)nbv, (int64_t*)total_bits                                  \
+  }
+  for (int64_t f = 0; f < n; ++f) {
+    if (planes_wide) frame(ZF_SYM_ARGS(int64_t), f);
+    else frame(ZF_SYM_ARGS(int32_t), f);
+  }
   return 0;
 }
 
 extern "C" int64_t zf_symbol_columns_host(int64_t w, int64_t b, int64_t mro, int64_t lpc_order) {
   return zf_sym_layout(w, b, mro, lpc_order, 0).s;
+}
+
+// q / d by zf_sym_div at both ends of every quotient k the kernel takes,
+// q = k d and q = k d + d - 1: (q m >> 32) >> s grows with q, so where both
+// ends give k every q between does. Returns the ends that differ from q / d.
+static int64_t div_faults(int64_t d, int64_t q_end, int64_t* checked) {
+  if (d < 2) return 0;  // the kernel divides by G only where G >= 2
+  const ZfSymDiv v = zf_sym_divider(d);
+  int64_t bad = 0;
+  for (int64_t k = 0; k * d < q_end; ++k) {
+    const int64_t lo = k * d, hi = std::min(k * d + d - 1, q_end - 1);
+    bad += zf_sym_div((uint32_t)lo, v) != (uint64_t)k;
+    bad += zf_sym_div((uint32_t)hi, v) != (uint64_t)k;
+    *checked += 2;
+  }
+  return bad;
+}
+
+// Every division of zf_sym_layout's frames of 8 wire channels, blocks
+// b_lo..b_hi, every top partition order 0..min(15, ctz(B)) (every
+// max_rice_order) and LPC orders 0-32: samples by G, residual sections by
+// G + 1, frame columns by the channel's columns. Returns the faults and
+// writes the ends checked.
+extern "C" int64_t zf_sym_division_faults(int64_t b_lo, int64_t b_hi, int64_t* checked) {
+  int64_t bad = 0;
+  *checked = 0;
+  for (int64_t b = b_lo; b <= b_hi; ++b)
+    for (int64_t po = 0; po <= std::min<int64_t>(15, zf_sym_ctz(b)); ++po) {
+      const ZfSymLayout l = zf_sym_layout(8, b, po, 0, 0);
+      bad += div_faults(l.g, b, checked);
+      bad += div_faults(l.g + 1, l.chan_cols - l.r0, checked);
+      for (int64_t lpc = 0; lpc <= 32; ++lpc) {
+        const ZfSymLayout m = zf_sym_layout(8, b, po, lpc, 15);
+        bad += div_faults(m.chan_cols, m.s - kZfSymHeaderCols, checked);
+      }
+    }
+  return bad;
 }
 """
 
@@ -149,6 +236,8 @@ def host(tmp_path_factory):
     lib.zf_frame_symbols_host.restype = ctypes.c_int
     lib.zf_symbol_columns_host.argtypes = [i64] * 4
     lib.zf_symbol_columns_host.restype = i64
+    lib.zf_sym_division_faults.argtypes = [i64, i64, ctypes.POINTER(i64)]
+    lib.zf_sym_division_faults.restype = i64
 
     def run(plan, frame_numbers, hstatic, B, max_rice_order, lpc_order, lpc_precision):
         err, out = tsym.launch(lib.zf_frame_symbols_host, plan, frame_numbers, hstatic, B,
@@ -200,14 +289,9 @@ def test_escape_fallback_and_long_codes(host):
     in 4 bits (N1, unmasked), a live escape (param << 5) | bps in 9 bits,
     and one Rice code is over 256 bits; the frames' sums pass 2^32, so
     dep_cum wraps as the plain version's int32."""
-    rng = np.random.default_rng(0x5E)
-    plan = synthetic_plan(rng, 16, 2, 256, 2, methods=(0,))
     # frame 0, channel 0: fixed order 0, one partition, param 0, and the two
     # residuals of the widest zigzag: two codes of ~2^32 bits
-    for name, v in (("kind", 2), ("order", 0), ("method", 0), ("part_order", 0)):
-        getattr(plan, name)[0, 0] = v
-    plan.params[0, 0, 0] = 0
-    plan.residuals[0, 0, :2] = torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32)
+    plan = long_code_plan(256, 0)
     hs = header_static(256, 44100, 16)
     dep_cum, total, val, nbv = _check(host, plan, torch.arange(16), hs, 256, 2)
     widths = torch.diff(dep_cum.to(torch.int64), dim=1) % (1 << 32)
@@ -215,6 +299,37 @@ def test_escape_fallback_and_long_codes(host):
     assert ((val == 30) & (nbv == 4)).any()            # N1: 30 in a 4-bit field
     assert ((nbv == 9) & ((val & 31) > 0)).any()        # a live escape param
     assert (widths > 256).any() and (total >= 1 << 32).any()
+
+
+@pytest.mark.parametrize("b,at", LONG_CODES[1:], ids=["across_warps", "across_tiles"])
+def test_long_codes_across_warps_and_tiles(host, b, at):
+    """The two ~2^32-bit codes in frame columns 127 and 128 (the last of warp
+    0's run and the first of warp 1's) and 1023 and 1024 (the last of the
+    first tile and the first of the next): the 32-bit scan carries them
+    across the warps' totals and the tiles' carry, the 64-bit total holds
+    them whole."""
+    plan = long_code_plan(b, at)
+    dep_cum, total, _, nbv = _check(host, plan, torch.arange(16), header_static(b, 44100, 16),
+                                    b, 2)
+    widths = torch.diff(dep_cum[0].to(torch.int64)) % (1 << 32)
+    col = 16 + 7 + at + at // (b >> 2) + 1  # sample at's column (G = b / 4)
+    # widths 2^32 and 2^32 - 1 (zigzags 2^32 - 1 and 2^32 - 2, param 0), mod 2^32
+    assert (int(widths[col - 1]), int(widths[col])) == (0, (1 << 32) - 1)
+    assert int(total[0]) >= (1 << 33) - 1
+    assert int(nbv[0, col]) == int(nbv[0, col + 1]) == 1
+
+
+def test_division_by_multiply(host):
+    """zf_sym_div (the high word of q * ceil(2^k / d), shifted by k - 32)
+    equals q // d for every quotient
+    the kernel takes, on every block of 1 to 65,535 samples and every top
+    partition order (every max_rice_order), LPC orders 0-32, 8 channels:
+    samples by G, residual sections by G + 1, frame columns by the channel's
+    columns; checked at both ends of each quotient, which bound every q
+    between (the product grows with q)."""
+    checked = ctypes.c_int64()
+    assert host.lib.zf_sym_division_faults(1, 65535, ctypes.byref(checked)) == 0
+    assert checked.value > 60_000_000
 
 
 def test_n1_smallest_input(host):
@@ -366,12 +481,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ((plan, fns[:2], hs, 64), ValueError),
         ((plan, fns, hs, 32), ValueError),
         ((plan, fns, hs._replace(tail_bytes=[1, 2, 3, 4, 5]), 64), ValueError),
+        ((synthetic_plan(rng, 3, 9, 64, 8), fns, hs, 64), ValueError),
         ((tan.FrameWirePlan(*(t.to("meta") for t in plan)), fns.to("meta"), hs, 64),
          NotImplementedError),
     ]
     for args, exc in bad:
         with pytest.raises(exc):
             tsym.frame_symbols(*args, 8, 0, 15)
+    # more than 256 grid groups (po_top 9), as the analysis refuses them
+    plan = synthetic_plan(rng, 3, 2, 512, 8)
+    with pytest.raises(ValueError, match="partition order 9"):
+        tsym.frame_symbols(plan, fns, header_static(512, 44100, 16), 512, 9, 0, 15)
 
 
 # -- whole encodes with the harness in the kernel's place ----------------------------

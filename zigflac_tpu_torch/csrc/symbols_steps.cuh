@@ -20,24 +20,29 @@
 // predicted subframe.
 //
 // A symbol is (nb, val, nbv): the field's width in bits (a Rice code's
-// width includes its unary run, so nb can reach 2^32 + 31), the value
+// width includes its unary run, so nb can reach 2^32 + 30), the value
 // deposited right-aligned at the field's end, and the value's width. The
-// kernel writes the inclusive prefix sum of nb in 64 bits and stores its low
-// 32 bits (the plain version's `.to(torch.int32)`), val in int64 and nbv in
-// int32: the deposit kernel's inputs (ops/deposit.py).
+// kernel stores the low 32 bits of the inclusive prefix sum of nb (the plain
+// version's `.to(torch.int32)`), val in int64 and nbv in int32: the deposit
+// kernel's inputs (ops/deposit.py). The low 32 bits of a sum are the sum of
+// the low 32 bits mod 2^32, so the scan runs in 32 bits; only total_bits,
+// the frame's sum, is taken in 64.
 //
 // Escapes: a partition's bps is 0 where all its residuals are zero, else the
-// bit length of its widest r ^ (r >> 31) plus the sign bit. The kernel keeps
-// one 32-bit key a residual, 0 for r == 0 and (r ^ (r >> 31)) + 1 otherwise
-// (at most 2^31), and takes the partition's largest: bps follows from it
-// alone. An escape param (2^(4 + method) - 1) with bps >= 32 falls back to
-// Rice param 30 (the reference's "TODO 32bits bug", ROADMAP sec. 3 N1): its
-// param column holds the value 30 in param_len bits, unmasked, as the plain
+// bit length of its widest r ^ (r >> 31) plus the sign bit. It matters only
+// where the param is the escape code (2^(4 + method) - 1): the kernel keeps
+// one 32-bit key a residual of such a partition, 0 for r == 0 and (r ^ (r >>
+// 31)) + 1 otherwise (at most 2^31), and takes the partition's largest: bps
+// follows from it alone. An escape with bps >= 32 falls back to Rice param
+// 30 (the reference's "TODO 32bits bug", ROADMAP sec. 3 N1): its param
+// column holds the value 30 in param_len bits, unmasked, as the plain
 // version writes it.
 //
-// Integer policy: every field is the plain version's int64 arithmetic.
-// Masks take widths 0..64 without a shift by the full width; no shift count
-// here reaches its operand's width.
+// Integer policy: every field equals the plain version's int64 arithmetic.
+// A code's value and width fit 32 bits (params and bps below 32), a Rice
+// code's unary run may not, so its width is taken in 64 bits; warmup and
+// verbatim samples take 64-bit masks (33-bit side samples). Masks take
+// widths 0..64 without a shift by the full width.
 #pragma once
 
 #include <stdint.h>
@@ -54,6 +59,7 @@ constexpr int kZfSymHeaderCols = 16;  // MAX_HEADER_BYTES
 constexpr int kZfSymParamCols = 256;  // params a plane (partitions of order 8)
 constexpr int kZfSymCoeffCols = 32;   // qcoeffs a plane
 constexpr int kZfSymMaxFixedOrder = 4;
+constexpr int kZfSymMaxChannels = 8;  // FLAC's channel limit
 constexpr int kZfCrc8Poly = 0x07;
 
 struct ZfCrc8Table {
@@ -92,17 +98,57 @@ ZF_HD int zf_sym_ctz(int64_t v) {
   return c;
 }
 
-struct ZfSym {
-  int64_t nb;   // field width in bits
-  int64_t val;  // value, right-aligned at the field's end
-  int32_t nbv;  // value width in bits
+// q / d without a division, for q < 2^20 and 2 <= d <= 2^17: m = ceil(2^k /
+// d) = (2^k + e) / d with 0 <= e < d, so q m / 2^k = q / d + q e / (d 2^k),
+// whose floor is q / d while (q mod d) + q e / 2^k < d, which q e < 2^k
+// ensures: k = max(32, 20 + bitlen(d)) > 20 + log2(e), and m < 2^32. The
+// kernel's quotients: columns of a frame (q < 2^20) by a channel's columns
+// (d < 2^17), of a residual section by G + 1, samples by G (G >= 2).
+struct ZfSymDiv {
+  uint32_t m, s;  // q / d = (q m >> 32) >> s
 };
 
-ZF_HD ZfSym zf_sym_make(int64_t nb, int64_t val, int64_t nbv) {
+ZF_HD ZfSymDiv zf_sym_divider(int64_t d) {
+  int bl = 0;
+  while (bl < 63 && ((int64_t)1 << bl) <= d) ++bl;
+  const int k = 20 + bl > 32 ? 20 + bl : 32;
+  ZfSymDiv v;
+  v.m = d < 2 ? 0u : (uint32_t)((((uint64_t)1 << k) + (uint64_t)d - 1) / (uint64_t)d);
+  v.s = (uint32_t)(k - 32);
+  return v;
+}
+
+ZF_HD uint32_t zf_sym_div(uint32_t q, ZfSymDiv v) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(q, v.m) >> v.s;
+#else
+  return (uint32_t)(((uint64_t)q * v.m) >> 32) >> v.s;
+#endif
+}
+
+// A load of the plan's planes or residuals (read-only for the kernel's life).
+template <typename T>
+ZF_HD T zf_sym_ld(const T* p) {
+#ifdef __CUDA_ARCH__
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "int32 or int64");
+  if constexpr (sizeof(T) == 8) return (T)__ldg(reinterpret_cast<const long long*>(p));
+  else return (T)__ldg(reinterpret_cast<const int*>(p));
+#else
+  return *p;
+#endif
+}
+
+struct ZfSym {
+  uint64_t nb;   // field width in bits
+  uint64_t val;  // value, right-aligned at the field's end
+  uint32_t nbv;  // value width in bits
+};
+
+ZF_HD ZfSym zf_sym_make(uint64_t nb, uint64_t val, uint32_t nbv) {
   ZfSym s;
   s.nb = nb;
   s.val = val;
-  s.nbv = (int32_t)nbv;
+  s.nbv = nbv;
   return s;
 }
 
@@ -112,6 +158,7 @@ struct ZfSymLayout {
   int64_t mw, lpc_order, lpc_precision;
   int64_t po_top, g;               // top partition order, samples a grid group
   int64_t r0, chan_cols, s;        // first residual-section column, columns a channel, a frame
+  ZfSymDiv d_g, d_grid, d_chan;    // zf_sym_divider of G (G >= 2), G + 1 and chan_cols
 };
 
 ZF_HD ZfSymLayout zf_sym_layout(int64_t w, int64_t b, int64_t max_rice_order, int64_t lpc_order,
@@ -129,6 +176,9 @@ ZF_HD ZfSymLayout zf_sym_layout(int64_t w, int64_t b, int64_t max_rice_order, in
   l.r0 = 2 + l.mw + (lpc_order ? 1 + lpc_order : 0) + 1;
   l.chan_cols = l.r0 + ((int64_t)1 << l.po_top) * (l.g + 1);
   l.s = kZfSymHeaderCols + w * l.chan_cols;
+  l.d_g = zf_sym_divider(l.g);
+  l.d_grid = zf_sym_divider(l.g + 1);
+  l.d_chan = zf_sym_divider(l.chan_cols);
   return l;
 }
 
@@ -138,54 +188,66 @@ struct ZfSymHeaderStatic {
   int64_t byte2, depth_code, tail, ntail;
 };
 
-struct ZfSymHeader {
-  int64_t bytes[kZfSymHeaderCols];
-  int64_t len;
-};
-
 // A frame header: sync, codes, the UTF-8 frame number
 // (ops/header.py utf8_frame_number_bytes), the tail bytes and the CRC-8 of
-// bytes [0, crc_pos) at crc_pos; bytes past it 0. Frame numbers are below
+// bytes [0, len - 1) at len - 1; bytes past it 0. Frame numbers are below
 // 2^36 (seven bytes at most).
-ZF_HD ZfSymHeader zf_sym_header(int64_t fn, int64_t channels_code, const ZfSymHeaderStatic& hs,
-                                const ZfCrc8Table& crc8) {
-  ZfSymHeader h;
-  for (int j = 0; j < kZfSymHeaderCols; ++j) h.bytes[j] = 0;
-  h.bytes[0] = 0xFF;
-  h.bytes[1] = 0xF8;
-  h.bytes[2] = hs.byte2;
-  h.bytes[3] = (channels_code << 4) | hs.depth_code;
-  const bool single = fn <= 0x7F;
-  int64_t i_cont = 0;
-  for (int i = 0; i < 7; ++i) i_cont += (fn >> (6 * i)) > (63 >> i);
-  const int64_t fn_len = single ? 1 : i_cont + 1;
-  const int64_t lead_shift = 6 - i_cont > 0 ? 6 - i_cont : 0;
-  h.bytes[4] = single ? fn : ((0xFE << lead_shift) | (fn >> (6 * i_cont))) & 0xFF;
-  for (int j = 1; j < fn_len; ++j) {
-    const int64_t shift = 6 * (i_cont - j) > 0 ? 6 * (i_cont - j) : 0;
-    h.bytes[4 + j] = 0x80 | ((fn >> shift) & 0x3F);
-  }
-  const int64_t tail_start = 4 + fn_len;
-  for (int t = 0; t < hs.ntail; ++t) h.bytes[tail_start + t] = (hs.tail >> (8 * t)) & 0xFF;
-  const int64_t crc_pos = tail_start + hs.ntail;
-  uint32_t crc = 0;
-  for (int j = 0; j < crc_pos; ++j) crc = crc8.t[(crc ^ (uint32_t)h.bytes[j]) & 0xFFu];
-  h.bytes[crc_pos] = crc;
-  h.len = crc_pos + 1;
-  return h;
-}
-
-ZF_HD ZfSym zf_sym_header_column(const ZfSymHeader& h, int64_t j) {
-  return j < h.len ? zf_sym_make(8, h.bytes[j], 8) : zf_sym_make(0, 0, 0);
-}
-
-// One wire channel's fields of one frame, as the plan holds them.
-struct ZfSymChannel {
-  int64_t kind;  // 0 constant, 1 verbatim, 2 fixed, 3 LPC
-  int64_t order, method, part_order, ss, qshift, wasted;
+struct ZfSymHeader {
+  uint32_t bytes[kZfSymHeaderCols];
+  int32_t len;
 };
 
-ZF_HD bool zf_sym_pred(const ZfSymChannel& c) { return c.kind == 2 || c.kind == 3; }
+// The UTF-8 frame number's continuation bytes, as the plain version counts
+// them (also for a frame number that takes one byte).
+ZF_HD int zf_sym_utf8_cont(int64_t fn) {
+  int c = 0;
+  for (int i = 0; i < 7; ++i) c += (fn >> (6 * i)) > (63 >> i);
+  return c;
+}
+
+ZF_HD int zf_sym_utf8_len(int64_t fn) { return fn <= 0x7F ? 1 : zf_sym_utf8_cont(fn) + 1; }
+
+// The CRC-8's position in the header.
+ZF_HD int zf_sym_header_crc_pos(int64_t fn, const ZfSymHeaderStatic& hs) {
+  return 4 + zf_sym_utf8_len(fn) + (int)hs.ntail;
+}
+
+// Byte j (0 <= j < 16) of a frame header, 0 from the CRC-8's position on.
+ZF_HD uint32_t zf_sym_header_byte(int j, int64_t fn, int64_t channels_code,
+                                  const ZfSymHeaderStatic& hs) {
+  if (j < 4) {
+    if (j < 2) return j == 0 ? 0xFFu : 0xF8u;
+    return j == 2 ? (uint32_t)hs.byte2 : (uint32_t)((channels_code << 4) | hs.depth_code);
+  }
+  const int cont = zf_sym_utf8_cont(fn), fn_len = fn <= 0x7F ? 1 : cont + 1;
+  if (j == 4) {
+    const int lead_shift = 6 - cont > 0 ? 6 - cont : 0;
+    if (fn <= 0x7F) return (uint32_t)fn;
+    return (uint32_t)(((0xFE << lead_shift) | (fn >> (6 * cont))) & 0xFF);
+  }
+  if (j < 4 + fn_len) {
+    const int shift = 6 * (cont - (j - 4)) > 0 ? 6 * (cont - (j - 4)) : 0;
+    return 0x80u | (uint32_t)((fn >> shift) & 0x3F);
+  }
+  const int t = j - 4 - fn_len;
+  return t < hs.ntail ? (uint32_t)((hs.tail >> (8 * t)) & 0xFF) : 0u;
+}
+
+// The header's CRC-8 over bytes [0, crc_pos), written at crc_pos.
+ZF_HD void zf_sym_header_crc(ZfSymHeader& h, int crc_pos, const ZfCrc8Table& crc8) {
+  uint32_t crc = 0;
+#pragma unroll
+  for (int j = 0; j < kZfSymHeaderCols - 1; ++j)
+    if (j < crc_pos) crc = crc8.t[(crc ^ h.bytes[j]) & 0xFFu];
+  h.bytes[crc_pos] = crc;
+  h.len = crc_pos + 1;
+}
+
+ZF_HD ZfSym zf_sym_header_column(const ZfSymHeader& h, uint32_t j) {
+  return (int32_t)j < h.len ? zf_sym_make(8, h.bytes[j], 8) : zf_sym_make(0, 0, 0);
+}
+
+ZF_HD bool zf_sym_pred(int32_t kind) { return kind == 2 || kind == 3; }
 
 // A residual's partition key: 0 for r == 0, else (r ^ (r >> 31)) + 1.
 ZF_HD uint32_t zf_sym_key(int32_t r) {
@@ -195,98 +257,221 @@ ZF_HD uint32_t zf_sym_key(int32_t r) {
 // bps of a partition from its largest key.
 ZF_HD int64_t zf_sym_bps(uint32_t key) { return key == 0 ? 0 : zf_sym_bitlen32(key - 1u) + 1; }
 
-// The grid groups that one partition at the chosen order spans, as a
-// shift: partition p covers groups [p << d, (p + 1) << d).
-ZF_HD int64_t zf_sym_part_shift(const ZfSymLayout& l, const ZfSymChannel& c) {
-  const int64_t d = l.po_top - c.part_order;
-  return d > 0 ? d : 0;
+ZF_HD bool zf_sym_is_escape(int64_t method, int64_t param) {
+  return param == ((int64_t)1 << (4 + method)) - 1;
 }
 
-// The Rice fields of a partition: its param (low 5 bits), the param its
-// codes use (30 in the N1 fallback), and whether it escapes.
-struct ZfSymPart {
-  int64_t param, k, bps;
-  bool live_escape, fallback;
+// The fields of a grid group's columns, packed for the column pass (one
+// 8-byte load from shared memory): x holds the mask of a code's value (bits
+// 0-30) and, in bit 31, a live escape; y the Rice param of the codes (bits
+// 0-4; 30 in the N1 fallback), the codes' value width (bits 8-13: k + 1, or
+// bps for a live escape), and the group's param column, its width (bits
+// 16-21) and value (bits 22-31), both 0 where the group does not start a
+// partition. `key` is the partition's largest key; it is read only for an
+// escape.
+struct ZfSymGroup {
+  uint32_t x, y;
 };
 
-ZF_HD ZfSymPart zf_sym_part(const ZfSymChannel& c, int64_t param, uint32_t key) {
-  ZfSymPart p;
-  p.bps = zf_sym_bps(key);
-  const bool is_esc = param == ((int64_t)1 << (4 + c.method)) - 1;
-  p.fallback = is_esc && p.bps >= 32;
-  p.live_escape = is_esc && !p.fallback;
-  p.param = param & 31;
-  p.k = (p.fallback ? 30 : param) & 31;
-  return p;
+// y of a group whose partition escapes, until its key is known (no group's
+// fields have a width of 63).
+constexpr uint32_t kZfSymPending = 0xFFFFFFFFu;
+
+ZF_HD ZfSymGroup zf_sym_group(int64_t method, int64_t param, uint32_t key, bool starts) {
+  const uint32_t bps = (uint32_t)zf_sym_bps(key);
+  const bool esc = zf_sym_is_escape(method, param), fallback = esc && bps >= 32;
+  const bool live = esc && !fallback;
+  const uint32_t p5 = (uint32_t)(param & 31), k = fallback ? 30u : p5;
+  const uint32_t plen = (uint32_t)(4 + method + (live ? 5 : 0));
+  const uint32_t v = live ? (p5 << 5) | bps : fallback ? 30u : p5;
+  ZfSymGroup e;
+  e.x = live ? ((1u << bps) - 1u) | 0x80000000u : (1u << k) - 1u;
+  e.y = (live ? 0u : k) | (live ? bps : k + 1u) << 8 | (starts ? plen : 0u) << 16 |
+        (starts ? v : 0u) << 22;
+  return e;
 }
 
-// Column `col` (0 <= col < chan_cols) of one channel. plane[i * plane_step]
-// and res[i * res_step] are sample i; params, qcoeffs and keys are the
-// channel's 256 params, 32 coefficients and per-partition largest keys.
+// One wire channel's fields of one frame, and its rows of the plan's planes
+// and residuals, as 16-byte loads from shared memory take them: a column of
+// a predicted subframe's residual section reads the first 24 bytes, a
+// verbatim one the first 40.
 template <typename T>
-ZF_HD ZfSym zf_sym_column(const ZfSymLayout& l, const ZfSymChannel& c, int64_t col,
-                          const T* plane, int64_t plane_step, const int32_t* res,
-                          int64_t res_step, const int64_t* params, const int64_t* qcoeffs,
-                          const uint32_t* keys) {
-  const bool pred = zf_sym_pred(c), lpc = c.kind == 3;
+struct alignas(16) ZfSymChannel {
+  int32_t kind;  // 0 constant, 1 verbatim, 2 fixed, 3 LPC
+  int32_t order, ss;
+  int32_t ds;    // the grid groups a partition spans, as a shift
+  const int32_t* res;
+  const T* plane;
+  uint64_t ss_mask;  // zf_sym_mask(ss)
+  int32_t method, part_order, qshift, wasted;
+};
+
+// Column col < r0 of one channel: its header, wasted bits, warmup, LPC and
+// method fields. c.plane[i * plane_step] is sample i; qcoeffs the channel's
+// 32 coefficients.
+template <typename T>
+ZF_HD ZfSym zf_sym_preamble_column(const ZfSymLayout& l, const ZfSymChannel<T>& c, int64_t col,
+                                   int64_t plane_step, const int64_t* qcoeffs) {
+  const bool pred = zf_sym_pred(c.kind), lpc = c.kind == 3;
   if (col == 0) {
     const int64_t hdr = c.kind == 0 ? 0
                         : c.kind == 1 ? 2
                         : lpc         ? (0x20 | (c.order - 1)) << 1
                                       : (8 | c.order) << 1;
-    return zf_sym_make(8, hdr | (c.wasted > 0), 8);
+    return zf_sym_make(8, (uint64_t)(hdr | (c.wasted > 0)), 8);
   }
   if (col == 1) {
     const int64_t nb = c.wasted > 0 ? c.wasted : 0;
-    return zf_sym_make(nb, nb > 0, nb > 0);
+    return zf_sym_make((uint64_t)nb, nb > 0, nb > 0);
   }
   if (col < 2 + l.mw) {
     const int64_t j = col - 2;
     const int64_t nb = pred && j < c.order ? c.ss : 0;
-    return zf_sym_make(nb, (int64_t)((uint64_t)(int64_t)plane[j * plane_step] & zf_sym_mask(nb)),
-                       nb);
+    return zf_sym_make((uint64_t)nb, (uint64_t)(int64_t)c.plane[j * plane_step] & zf_sym_mask(nb),
+                       (uint32_t)nb);
   }
   const int64_t m_col = l.r0 - 1;
   if (col < m_col) {  // LPC: precision and shift, then the coefficients
     const int64_t j = col - 2 - l.mw;
     if (j == 0) {
       const int64_t nb = lpc ? 9 : 0;
-      return zf_sym_make(nb, lpc ? ((l.lpc_precision - 1) << 5) | c.qshift : 0, nb);
+      const int64_t v = lpc ? ((l.lpc_precision - 1) << 5) | c.qshift : 0;
+      return zf_sym_make((uint64_t)nb, (uint64_t)v, (uint32_t)nb);
     }
     const int64_t nb = lpc && j - 1 < c.order ? l.lpc_precision : 0;
-    return zf_sym_make(nb, (int64_t)((uint64_t)qcoeffs[j - 1] & zf_sym_mask(nb)), nb);
+    return zf_sym_make((uint64_t)nb, (uint64_t)qcoeffs[j - 1] & zf_sym_mask(nb), (uint32_t)nb);
   }
-  if (col == m_col) {
-    const int64_t nb = pred ? 6 : 0;
-    return zf_sym_make(nb, pred ? (c.method << 4) | c.part_order : 0, nb);
+  const int64_t nb = pred ? 6 : 0;
+  return zf_sym_make((uint64_t)nb, pred ? (uint64_t)((c.method << 4) | c.part_order) : 0,
+                     (uint32_t)nb);
+}
+
+// Column r0 + q of one channel's residual section: group g = q / (G + 1),
+// whose slot 0 is its param column and slot s its sample g G + s - 1 = q - g
+// - 1. groups holds the channel's group fields (zf_sym_group). A predicted
+// subframe's column selects its fields without a branch on its slot: the
+// param column, a warmup sample, an escape or a Rice code; only a Rice
+// code's width takes 64 bits.
+template <typename T>
+ZF_HD ZfSym zf_sym_residual_column(const ZfSymLayout& l, const ZfSymChannel<T>& c, uint32_t q,
+                                   const ZfSymGroup* groups, int64_t plane_step,
+                                   int64_t res_step) {
+  const uint32_t g = zf_sym_div(q, l.d_grid), i = q - g - 1;
+  const bool param_col = q == g * (uint32_t)(l.g + 1);
+  if (zf_sym_pred(c.kind)) {
+    const ZfSymGroup e = groups[g];
+    const bool warm = !param_col && i < (uint32_t)c.order;
+    const int32_t r = param_col || warm ? 0 : zf_sym_ld(c.res + (int64_t)i * res_step);
+    const bool live = e.x >> 31;
+    const uint32_t mask = e.x & 0x7FFFFFFFu, k = e.y & 31u, width = (e.y >> 8) & 63u;
+    const uint32_t zz = ((uint32_t)r << 1) ^ (uint32_t)(r >> 31);
+    uint32_t val = live ? (uint32_t)r & mask : (zz & mask) | (mask + 1u);
+    uint32_t nbv = width;
+    uint64_t nb = live ? (uint64_t)width : (uint64_t)(zz >> k) + width;
+    if (param_col) {
+      nbv = (e.y >> 16) & 63u;
+      nb = nbv;
+      val = e.y >> 22;
+    }
+    if (warm) nb = val = nbv = 0;
+    return zf_sym_make(nb, val, nbv);
   }
-  // the residual section: group g, slot 0 its param column, slots 1..G its
-  // samples (32-bit division: a channel has fewer than 2^31 columns)
-  const uint32_t q = (uint32_t)(col - l.r0), gsz = (uint32_t)(l.g + 1);
-  const int64_t g = q / gsz, slot = q - (uint32_t)g * gsz;
-  const int64_t d = zf_sym_part_shift(l, c);
-  if (slot == 0) {
-    const bool starts = (g & (((int64_t)1 << d) - 1)) == 0;
-    if (!(pred && starts)) return zf_sym_make(0, 0, 0);
-    const int64_t p = g >> d;
-    const ZfSymPart pt = zf_sym_part(c, params[p], keys[p]);
-    const int64_t plen = 4 + c.method + (pt.live_escape ? 5 : 0);
-    const int64_t v = pt.live_escape ? (pt.param << 5) | pt.bps : pt.fallback ? 30 : pt.param;
-    return zf_sym_make(plen, v, plen);
+  // constant: sample 0 only; verbatim: every sample
+  if (param_col || (c.kind == 0 && i != 0)) return zf_sym_make(0, 0, 0);
+  return zf_sym_make((uint64_t)c.ss,
+                     (uint64_t)(int64_t)zf_sym_ld(c.plane + (int64_t)i * plane_step) & c.ss_mask,
+                     (uint32_t)c.ss);
+}
+
+// One launch's arguments: the plan's fields (int64 [w, n] each, params
+// [w, n, 256], qcoeffs [w, n, 32], contiguous), planes and residuals through
+// their element strides, the outputs.
+template <typename T>
+struct ZfSymArgs {
+  const int64_t *frame_numbers, *channels_code;            // [N]
+  const int64_t *kind, *order, *method, *part_order, *ss;  // [W, N]
+  const int64_t *qshift, *wasted;                          // [W, N]
+  const int64_t *params, *qcoeffs;                         // [W, N, 256], [W, N, 32]
+  const T* planes;
+  int64_t pl_w, pl_n, pl_b;  // element strides of planes [W, N, B]
+  const int32_t* res;
+  int64_t rs_w, rs_n, rs_b;  // element strides of residuals [W, N, B]
+  int64_t n;
+  ZfSymLayout lay;
+  ZfSymHeaderStatic hs;
+  int32_t* dep_cum;
+  int64_t* val;
+  int32_t* nbv;
+  int64_t* total_bits;
+};
+
+// Channel c of frame f, from the plan.
+template <typename T>
+ZF_HD ZfSymChannel<T> zf_sym_channel(const ZfSymArgs<T>& a, int64_t c, int64_t f) {
+  const int64_t wn = c * a.n + f, po = a.part_order[wn];
+  ZfSymChannel<T> ch;
+  ch.kind = (int32_t)a.kind[wn];
+  ch.order = (int32_t)a.order[wn];
+  ch.ss = (int32_t)a.ss[wn];
+  // partition p covers groups [p << ds, (p + 1) << ds)
+  ch.ds = (int32_t)(a.lay.po_top - po > 0 ? a.lay.po_top - po : 0);
+  ch.res = a.res + c * a.rs_w + f * a.rs_n;
+  ch.plane = a.planes + c * a.pl_w + f * a.pl_n;
+  ch.ss_mask = zf_sym_mask(ch.ss);
+  ch.method = (int32_t)a.method[wn];
+  ch.part_order = (int32_t)po;
+  ch.qshift = (int32_t)a.qshift[wn];
+  ch.wasted = (int32_t)a.wasted[wn];
+  return ch;
+}
+
+// The group fields of frame f's (channel, group) pairs idx = start, start +
+// step, ... (groups[c * 256 + g]; at most 256 groups, po_top <= 8), read
+// from the plan's fields; an escape's are kZfSymPending until its
+// partition's largest key, set to 0 in keys[c * 256 + p] here, is known.
+// With `finish`, the escapes' fields from those keys, read from chan.
+// Returns whether it met an escape.
+template <typename T>
+ZF_HD bool zf_sym_group_fields(const ZfSymArgs<T>& a, int64_t f, const ZfSymChannel<T>* chan,
+                               ZfSymGroup* groups, uint32_t* keys, bool finish, int start,
+                               int step) {
+  const ZfSymLayout& l = a.lay;
+  bool esc = false;
+  for (int idx = start; idx < l.w * kZfSymParamCols; idx += step) {
+    const int c = idx / kZfSymParamCols, g = idx % kZfSymParamCols;
+    const int64_t wn = c * a.n + f;
+    const int64_t kind = finish ? chan[c].kind : a.kind[wn];
+    if (g >= ((int64_t)1 << l.po_top) || !zf_sym_pred((int32_t)kind)) continue;
+    const int64_t po = finish ? chan[c].part_order : a.part_order[wn];
+    const int64_t method = finish ? chan[c].method : a.method[wn];
+    const int ds = (int)(l.po_top - po > 0 ? l.po_top - po : 0), p = g >> ds;
+    const bool starts = (g & ((1 << ds) - 1)) == 0;
+    const int64_t param = a.params[wn * kZfSymParamCols + p];
+    const bool e = zf_sym_is_escape(method, param);
+    uint32_t& key = keys[c * kZfSymParamCols + p];
+    if (finish && e) groups[idx] = zf_sym_group(method, param, key, starts);
+    if (!finish && e && starts) key = 0;
+    if (!finish)
+      groups[idx] = e ? ZfSymGroup{0u, kZfSymPending} : zf_sym_group(method, param, 0, starts);
+    esc = esc || e;
   }
-  const int64_t i = g * l.g + slot - 1;
-  if (c.kind == 1 || (c.kind == 0 && i == 0)) {
-    return zf_sym_make(c.ss,
-                       (int64_t)((uint64_t)(int64_t)plane[i * plane_step] & zf_sym_mask(c.ss)),
-                       c.ss);
-  }
-  if (!pred || i < c.order) return zf_sym_make(0, 0, 0);
-  const int64_t p = g >> d;
-  const ZfSymPart pt = zf_sym_part(c, params[p], keys[p]);
-  const int32_t r = res[i * res_step];
-  if (pt.live_escape)
-    return zf_sym_make(pt.bps, (int64_t)((uint64_t)(int64_t)r & zf_sym_mask(pt.bps)), pt.bps);
-  const uint32_t zz = ((uint32_t)r << 1) ^ (uint32_t)(r >> 31);
-  return zf_sym_make((int64_t)(zz >> pt.k) + pt.k + 1,
-                     (int64_t)((1ull << pt.k) | (zz & zf_sym_mask(pt.k))), pt.k + 1);
+  return esc;
+}
+
+// Column col of frame f: header, channel preamble or residual section. hdr,
+// chan and groups are the frame's header, channels and group fields
+// (groups[c * 256 + g]).
+template <typename T>
+ZF_HD ZfSym zf_sym_frame_column(const ZfSymArgs<T>& a, int64_t f, uint32_t col,
+                                const ZfSymHeader& hdr, const ZfSymChannel<T>* chan,
+                                const ZfSymGroup* groups) {
+  const ZfSymLayout& l = a.lay;
+  if (col < (uint32_t)kZfSymHeaderCols) return zf_sym_header_column(hdr, col);
+  const uint32_t q0 = col - kZfSymHeaderCols, c = zf_sym_div(q0, l.d_chan);
+  const uint32_t cc = q0 - c * (uint32_t)l.chan_cols;
+  if (cc < (uint32_t)l.r0)
+    return zf_sym_preamble_column(l, chan[c], cc, a.pl_b,
+                                  a.qcoeffs + (c * a.n + f) * kZfSymCoeffCols);
+  return zf_sym_residual_column(l, chan[c], cc - (uint32_t)l.r0, groups + c * kZfSymParamCols,
+                                a.pl_b, a.rs_b);
 }

@@ -4,8 +4,8 @@ and the prefix sum of their widths, as the deposit's inputs.
 Counterpart of ``zigflac_tpu/ops/bitpack.py`` ``frame_symbol_stream`` with
 ``zigflac_tpu/ops/header.py`` ``build_headers``. ``frame_symbols`` routes by
 device: a CUDA plan launches the hand-written kernel ``zf_frame_symbols``
-(``csrc/symbols.cu``, one CTA a frame) or raises, a CPU plan takes the plain
-version ``bitpack.frame_symbol_stream``. Both give the deposit's arrays
+(``csrc/symbols.cu``, one CTA a frame, a column a lane) or raises, a CPU
+plan takes the plain version ``bitpack.frame_symbol_stream``. Both give the deposit's arrays
 (``ops/deposit.py``): ``dep_cum`` int32 [N, S] (each field's end bit, the low
 32 bits of the 64-bit sum), ``total_bits`` int64 [N], ``val`` int64 [N, S]
 and ``nbv`` int32 [N, S], with the column layout ``symbol_columns`` counts.
@@ -19,13 +19,15 @@ from __future__ import annotations
 import torch
 
 from . import bitpack
-from .analyze import FrameWirePlan, PARAM_COLS
+from .analyze import FrameWirePlan, PARAM_COLS, check_partition_order
 from .header import MAX_HEADER_BYTES, HeaderStatic
 from ..utils.config import MAX_FIXED_ORDER
 
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
+# FLAC's channel limit, the kernel's (kZfSymMaxChannels in csrc/symbols_steps.cuh)
+MAX_WIRE_CHANNELS = 8
 # the plan's [W, N] fields, in the kernel's argument order
 _FIELDS = ("kind", "order", "method", "part_order", "sample_size", "qshift", "wasted")
 
@@ -52,6 +54,8 @@ def _check(plan: FrameWirePlan, frame_numbers: torch.Tensor, hstatic: HeaderStat
            block_size: int) -> None:
     dev = plan.kind.device
     w, n = plan.kind.shape
+    if w > MAX_WIRE_CHANNELS:
+        raise ValueError(f"at most {MAX_WIRE_CHANNELS} wire channels, got {w}")
     want = {name: (w, n) for name in _FIELDS}
     want.update(params=(w, n, PARAM_COLS), qcoeffs=(w, n, 32), planes=(w, n, block_size),
                 residuals=(w, n, block_size), channels_code=(n,))
@@ -87,6 +91,7 @@ def frame_symbols(
     version on a CPU plan. ``lpc_order`` is ``analyze.lpc_order_of(config)``."""
     global KERNEL_LAUNCHES, PLAIN_CALLS
     _check(plan, frame_numbers, hstatic, block_size)
+    check_partition_order(block_size, max_rice_order)
     dev = plan.kind.device
     if dev.type == "cpu":
         PLAIN_CALLS += 1
