@@ -1284,6 +1284,7 @@ def phase10_decode(env, tmp, cases, long_file) -> int:
     was encoded from). Returns the synthesis kernel's launches over the
     counted decode paths."""
     zt, dev, decoder, torch = env.zt, env.dev, env.decoder, env.torch
+    from zigflac_tpu_torch.utils import stages
     from zigflac_tpu_torch.wav import WavReader, wav_header_bytes
 
     launches = 0
@@ -1297,10 +1298,13 @@ def phase10_decode(env, tmp, cases, long_file) -> int:
         launches += k
         if not got.md5_ok or not np.array_equal(got.samples, want):
             raise AssertionError(f"decode {name}: samples or MD5 differ from the WAV's")
-        decoder.STATS, env.synth.STATS = {}, {}
+        decoder.STATS, env.synth.STATS, stages.COUNTS = {}, {}, {}
         zt.decode_flac(flac, device=dev)
         torch.cuda.synchronize()
         stats, decoder.STATS = decoder.STATS, None
+        counts, stages.COUNTS = stages.COUNTS, None
+        stats.update(h2d_bytes=counts["decoder.h2d_bytes"], d2h_bytes=counts["decoder.d2h_bytes"],
+                     batches=counts["decoder.batches"])
         variants, env.synth.STATS = env.synth.variant_counts(env.synth.STATS["variants"]), None
         if name in NARROW_STREAMS and variants["narrow"] != variants["blocks"]:
             raise AssertionError(f"decode {name}: a block left the int32 arithmetic: {variants}")
@@ -1638,7 +1642,7 @@ def phase12_multi(env, album, wav1, wav32, cfg_lpc):
         (rows, cap), kc, _ = env.counted("12c encode_compact_sharded", lambda: encode_compact_sharded(
             batch, fns, cfg1, 16, RATE, 0, one))
         stream, meta = rows[0]
-        got = pl._collect_aligned(stream, meta[:-1], n, cap, {"d2h_bytes": 0})
+        got = pl._collect_aligned(stream, meta[:-1], n, cap)
         want = pl.DevicePipeline(cfg1, 16, dev).encode_frames_stream(
             batch.astype(np.int32), 0, zt.StreamInfo(RATE, 2, 16, n * BLOCK, BLOCK, BLOCK))
         if meta[-2:].tolist() != [0, 0] or got is None or got[0] != want[0]:

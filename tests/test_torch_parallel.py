@@ -115,12 +115,11 @@ def test_sharded_matches_single(frames16, jax_sharded16, mesh):
         frames16, np.arange(NF16, dtype=np.int64), cfg, 16, 44100, 0, mesh)
     per = NF16 // mesh.size
     assert sorted(rows) == list(range(mesh.size))
-    stats = {"d2h_bytes": 0}
     parts, sizes = [], []
     for s in range(mesh.size):
         stream, meta = rows[s]
         assert meta.shape == (per + 3,) and meta[-2] == 0 and meta[-1] == 0
-        got = pipeline._collect_aligned(stream, meta[:-1], per, frame_cap, stats)
+        got = pipeline._collect_aligned(stream, meta[:-1], per, frame_cap)
         parts.append(got[0])
         sizes.extend(got[1].tolist())
     assert (b"".join(parts), sizes) == jax_sharded16

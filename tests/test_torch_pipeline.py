@@ -173,17 +173,6 @@ def test_capacity_ladder_depth32_exact_tier(rng, monkeypatch):
                                                 backend="golden")
 
 
-def test_transfer_stats_are_per_pipeline(rng):
-    wav = _wav(rng, 4096 + 5, 2, 16)
-    reader = WavReader.from_bytes(wav)
-    a = Encoder(EncoderConfig(), 16, "cpu")
-    b = Encoder(EncoderConfig(), 16, "cpu")
-    a.encode_stream(reader.planar_samples(), reader.flac_streaminfo(4096))
-    assert a.pipeline.transfer_stats["h2d_bytes"] > 0
-    assert a.pipeline.transfer_stats["d2h_bytes"] > 0
-    assert b.pipeline.transfer_stats == {"h2d_bytes": 0, "d2h_bytes": 0}
-
-
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

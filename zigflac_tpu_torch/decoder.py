@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .metadata import StreamInfo
+from .utils import stages
 
 
 class FlacDecodeError(ValueError):
@@ -161,10 +162,11 @@ _BACKENDS = ("device", "native")
 _TORCH_DTYPE = {np.int64: torch.int64, np.int32: torch.int32}
 
 # While this is a dict, every batch of the device backend adds to it: the
-# host parse's seconds ("parse_s"), the bytes copied to and from the device
-# ("h2d_bytes", "d2h_bytes"), the batch count ("batches") and, on a CUDA
-# device, one (start, end) CUDA event pair around each synthesis launch
-# ("synth_events"). None, the default, records nothing.
+# host parse's seconds ("parse_s") and, on a CUDA device, one (start, end)
+# CUDA event pair around each synthesis launch ("synth_events"). None, the
+# default, records nothing. The bytes copied to and from the device and the
+# batches are the tracer's counters ``decoder.h2d_bytes``,
+# ``decoder.d2h_bytes`` and ``decoder.batches`` (``utils/stages.py``).
 STATS: Optional[dict] = None
 
 
@@ -190,13 +192,13 @@ def _to_device(buf, np_dtype, shape, device: torch.device) -> torch.Tensor:
     """A parser output buffer as a tensor on ``device``: one host copy into
     a staging tensor (pinned for a CUDA device, so the transfer does not wait
     for the work already queued), then the copy to the device."""
-    a = np.frombuffer(buf, np_dtype).reshape(shape)
-    staged = torch.empty(shape, dtype=_TORCH_DTYPE[np_dtype],
-                         pin_memory=device.type == "cuda")
-    staged.numpy()[...] = a
-    if STATS is not None:
-        STATS["h2d_bytes"] = STATS.get("h2d_bytes", 0) + a.nbytes
-    return staged.to(device, non_blocking=True)
+    with stages.span("decoder.h2d"):
+        a = np.frombuffer(buf, np_dtype).reshape(shape)
+        staged = torch.empty(shape, dtype=_TORCH_DTYPE[np_dtype],
+                             pin_memory=device.type == "cuda")
+        staged.numpy()[...] = a
+        stages.count("decoder.h2d_bytes", a.nbytes)
+        return staged.to(device, non_blocking=True)
 
 
 def _decode_batch(
@@ -213,15 +215,16 @@ def _decode_batch(
     transfers). Both produce identical samples."""
     _n = _parser()
     C = info.channels
-    t0 = time.perf_counter()
-    try:
-        (n, end, B, vb, qb, sb, cb, fb, kb, eb) = _n.parse_frames(
-            data, pos, max_frames, info.bit_depth, C
-        )
-    except ValueError as e:
-        raise FlacDecodeError(str(e)) from e
-    if STATS is not None:
-        STATS["parse_s"] = STATS.get("parse_s", 0.0) + time.perf_counter() - t0
+    with stages.span("decoder.parse"):
+        t0 = time.perf_counter()
+        try:
+            (n, end, B, vb, qb, sb, cb, fb, kb, eb) = _n.parse_frames(
+                data, pos, max_frames, info.bit_depth, C
+            )
+        except ValueError as e:
+            raise FlacDecodeError(str(e)) from e
+        if STATS is not None:
+            STATS["parse_s"] = STATS.get("parse_s", 0.0) + time.perf_counter() - t0
     if n == 0:
         return np.zeros((C, 0), np.int64), 0, pos
     ch_code = np.frombuffer(cb, np.int32)
@@ -231,9 +234,10 @@ def _decode_batch(
         raise FlacDecodeError(f"frame CRC mismatch (frame {bad} of batch)")
 
     if device is None:
-        samples = np.frombuffer(
-            _n.synthesize(vb, qb, sb, cb, n, C, B), np.int64
-        ).reshape(n, C, B)
+        with stages.span("decoder.synth"):
+            samples = np.frombuffer(
+                _n.synthesize(vb, qb, sb, cb, n, C, B), np.int64
+            ).reshape(n, C, B)
     else:
         from .ops.synth import _synthesize_unchecked, recombine_stereo
 
@@ -246,30 +250,33 @@ def _decode_batch(
         values = _to_device(vb, np.int64, (M, B), device)
         qco = _to_device(qb, np.int64, (M, 32), device)
         sow = _to_device(sb, np.int32, (M, 3), device).to(torch.int64)
-        timed = STATS is not None and device.type == "cuda"
-        if timed:
-            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-        wire = _synthesize_unchecked(values, qco, sow[:, 0], sow[:, 1], sow[:, 2])
-        if timed:
-            stop.record()
-            STATS.setdefault("synth_events", []).append((start, stop))
-        wire = wire.reshape(n, C, B)
-        if C == 2 and (ch_code >= 8).any():
-            wire = recombine_stereo(wire, _to_device(cb, np.int32, (n,), device))
-        if info.bit_depth <= 24:
-            # samples fit i32 (depth+1 side headroom <= 25 bits): halve the
-            # device->host bytes, then widen on host (the decoder's public
-            # dtype is int64 for the 33-bit depth-32 case)
-            wire = wire.to(torch.int32)
-        got = wire.cpu().numpy()
-        if STATS is not None:
-            STATS["d2h_bytes"] = STATS.get("d2h_bytes", 0) + got.nbytes
-            STATS["batches"] = STATS.get("batches", 0) + 1
-        samples = got.astype(np.int64)
-    if np.abs(samples).max(initial=0) >= (1 << 40):
-        raise FlacDecodeError("synthesis diverged — corrupt stream")
-    return samples.transpose(1, 0, 2).reshape(C, n * B), n, end
+        with stages.span("decoder.synth"):
+            timed = STATS is not None and device.type == "cuda"
+            if timed:
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            wire = _synthesize_unchecked(values, qco, sow[:, 0], sow[:, 1], sow[:, 2])
+            if timed:
+                stop.record()
+                STATS.setdefault("synth_events", []).append((start, stop))
+            wire = wire.reshape(n, C, B)
+            if C == 2 and (ch_code >= 8).any():
+                wire = recombine_stereo(wire, _to_device(cb, np.int32, (n,), device))
+            if info.bit_depth <= 24:
+                # samples fit i32 (depth+1 side headroom <= 25 bits): halve the
+                # device->host bytes, then widen on host (the decoder's public
+                # dtype is int64 for the 33-bit depth-32 case)
+                wire = wire.to(torch.int32)
+        with stages.span("decoder.d2h"):  # waits for the synthesis, then copies
+            got = wire.cpu().numpy()
+        stages.count("decoder.d2h_bytes", got.nbytes)
+        stages.count("decoder.batches")
+    with stages.span("decoder.widen"):
+        if device is not None:
+            samples = got.astype(np.int64)
+        if np.abs(samples).max(initial=0) >= (1 << 40):
+            raise FlacDecodeError("synthesis diverged — corrupt stream")
+        return samples.transpose(1, 0, 2).reshape(C, n * B), n, end
 
 
 def decode_flac(
@@ -283,29 +290,32 @@ def decode_flac(
     with C++ IIR synthesis and touches no device. Both produce identical
     samples (tests/test_torch_decoder.py).
     """
-    device = _resolve(device, backend)
-    info, vendor, tags, seektable, pos = _parse_metadata(data)
-    chunks: List[np.ndarray] = []
-    frame_count = 0
-    total = 0
-    while total < info.interchannel_samples and pos < len(data):
-        samples, nfr, pos = _decode_batch(data, pos, info, check_crc, device)
-        if nfr == 0:
-            break
-        frame_count += nfr
-        chunks.append(samples)
-        total += samples.shape[1]
-    if total != info.interchannel_samples:
-        raise FlacDecodeError(
-            f"decoded {total} samples, STREAMINFO says {info.interchannel_samples}"
+    with stages.entry("decode.call"):
+        device = _resolve(device, backend)
+        with stages.span("decoder.metadata"):
+            info, vendor, tags, seektable, pos = _parse_metadata(data)
+        chunks: List[np.ndarray] = []
+        frame_count = 0
+        total = 0
+        while total < info.interchannel_samples and pos < len(data):
+            samples, nfr, pos = _decode_batch(data, pos, info, check_crc, device)
+            if nfr == 0:
+                break
+            frame_count += nfr
+            chunks.append(samples)
+            total += samples.shape[1]
+        if total != info.interchannel_samples:
+            raise FlacDecodeError(
+                f"decoded {total} samples, STREAMINFO says {info.interchannel_samples}"
+            )
+        with stages.span("decoder.concat"):
+            samples = np.concatenate(chunks, axis=1) if chunks else np.zeros(
+                (info.channels, 0), dtype=np.int64
+            )
+        md5_ok = _verify_md5(samples, info)
+        return DecodedStream(
+            info, samples, vendor, frame_count, md5_ok, tags, seektable or None
         )
-    samples = np.concatenate(chunks, axis=1) if chunks else np.zeros(
-        (info.channels, 0), dtype=np.int64
-    )
-    md5_ok = _verify_md5(samples, info)
-    return DecodedStream(
-        info, samples, vendor, frame_count, md5_ok, tags, seektable or None
-    )
 
 
 def _verify_md5(samples: np.ndarray, info: StreamInfo) -> bool:
@@ -319,8 +329,11 @@ def _verify_md5(samples: np.ndarray, info: StreamInfo) -> bool:
 
     if info.md5 == b"\x00" * 16:
         return True
-    raw = reconstruct_raw_bytes(samples, info.bit_depth)
-    return hashlib.md5(raw).digest() == info.md5
+    with stages.span("decoder.md5"):
+        with stages.span("decoder.md5.serialize"):
+            raw = reconstruct_raw_bytes(samples, info.bit_depth)
+        with stages.span("decoder.md5.hash"):
+            return hashlib.md5(raw).digest() == info.md5
 
 
 def decode_file(
@@ -364,7 +377,7 @@ def decode_file(
         threads = _os.cpu_count() or 1
     mt = fused and threads > 1
     _n = _parser() if fused else None
-    with open(input_path, "rb") as f:
+    with stages.entry("decode.call"), open(input_path, "rb") as f:
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         try:
             if mm[:4] == b"OggS":
@@ -508,45 +521,47 @@ def decode_range(
     skip are decoded and discarded (FLAC frames are independent, so this is
     exact). Batch sizes are capped near the range so little work happens
     past its end."""
-    device = _resolve(device, backend)
-    info, _vendor, _tags, seektable, pos = _parse_metadata(data)
-    if start_sample < 0 or start_sample + n_samples > info.interchannel_samples:
-        raise FlacDecodeError("requested range outside the stream")
-    first_frame_pos = pos
-    cur_sample = 0
-    best = None
-    for sample, offset, _ns in seektable or []:
-        if sample <= start_sample and (best is None or sample > best[0]):
-            best = (sample, offset)
-    if best is not None:
-        cur_sample = best[0]
-        pos = first_frame_pos + best[1]
+    with stages.entry("decode.call"):
+        device = _resolve(device, backend)
+        with stages.span("decoder.metadata"):
+            info, _vendor, _tags, seektable, pos = _parse_metadata(data)
+        if start_sample < 0 or start_sample + n_samples > info.interchannel_samples:
+            raise FlacDecodeError("requested range outside the stream")
+        first_frame_pos = pos
+        cur_sample = 0
+        best = None
+        for sample, offset, _ns in seektable or []:
+            if sample <= start_sample and (best is None or sample > best[0]):
+                best = (sample, offset)
+        if best is not None:
+            cur_sample = best[0]
+            pos = first_frame_pos + best[1]
 
-    out: List[np.ndarray] = []
-    got = 0
-    block_hint = info.max_block_size or 4096
-    while got < n_samples and pos < len(data):
-        # bound the batch to the frames the range can still need
-        need = start_sample + n_samples - cur_sample
-        maxf = min(_BATCH_FRAMES, -(-need // max(block_hint, 1)) + 1)
-        samples, nfr, pos = _decode_batch(
-            data, pos, info, check_crc, device, max_frames=maxf
-        )
-        if nfr == 0:
-            break
-        block_hint = samples.shape[1] // nfr
-        bs = samples.shape[1]
-        if cur_sample + bs <= start_sample:
+        out: List[np.ndarray] = []
+        got = 0
+        block_hint = info.max_block_size or 4096
+        while got < n_samples and pos < len(data):
+            # bound the batch to the frames the range can still need
+            need = start_sample + n_samples - cur_sample
+            maxf = min(_BATCH_FRAMES, -(-need // max(block_hint, 1)) + 1)
+            samples, nfr, pos = _decode_batch(
+                data, pos, info, check_crc, device, max_frames=maxf
+            )
+            if nfr == 0:
+                break
+            block_hint = samples.shape[1] // nfr
+            bs = samples.shape[1]
+            if cur_sample + bs <= start_sample:
+                cur_sample += bs
+                continue
+            lo = max(0, start_sample + got - cur_sample)
+            hi = min(bs, start_sample + n_samples - cur_sample)
+            out.append(samples[:, lo:hi])
+            got += hi - lo
             cur_sample += bs
-            continue
-        lo = max(0, start_sample + got - cur_sample)
-        hi = min(bs, start_sample + n_samples - cur_sample)
-        out.append(samples[:, lo:hi])
-        got += hi - lo
-        cur_sample += bs
-    if got != n_samples:
-        raise FlacDecodeError("stream ended inside the requested range")
-    return np.concatenate(out, axis=1)
+        if got != n_samples:
+            raise FlacDecodeError("stream ended inside the requested range")
+        return np.concatenate(out, axis=1)
 
 
 def verify_flac(data: bytes, device="cuda", backend: str = "device") -> bool:
@@ -558,12 +573,13 @@ def verify_flac(data: bytes, device="cuda", backend: str = "device") -> bool:
     clean verification failure, not a crash. A device that is not there is
     not a verdict on the stream: that error is raised."""
     device = _resolve(device, backend)
-    try:
-        if data[:4] == b"OggS":
-            from .ogg import ogg_to_flac
+    with stages.entry("decode.call"):
+        try:
+            if data[:4] == b"OggS":
+                from .ogg import ogg_to_flac
 
-            data = ogg_to_flac(data)
-        dec = decode_flac(data, check_crc=True, device=device, backend=backend)
-    except (FlacDecodeError, EOFError, IndexError, ValueError):
-        return False
-    return dec.md5_ok
+                data = ogg_to_flac(data)
+            dec = decode_flac(data, check_crc=True, device=device, backend=backend)
+        except (FlacDecodeError, EOFError, IndexError, ValueError):
+            return False
+        return dec.md5_ok

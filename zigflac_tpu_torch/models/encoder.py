@@ -38,6 +38,7 @@ from ..metadata import (
     vorbis_comment_block,
 )
 from ..ogg import OggStreamSink
+from ..utils import stages
 from ..utils.config import EncoderConfig
 from ..wav import WavReader, WavStreamReader, reconstruct_raw_bytes
 from .pipeline import TAIL_DEVICE_MIN, DevicePipeline
@@ -110,21 +111,23 @@ class Encoder:
         if seek_interval is not None and seek_interval <= 0:
             raise ValueError(f"seek_interval must be positive, got {seek_interval}")
         block = self.config.block_size
-        stream, sizes, md5 = self._encode_samples(samples, info, raw_pcm_bytes)
-        info.update_frame_sizes(sizes)
-        info.md5 = md5
+        with stages.entry("encode.call"):
+            stream, sizes, md5 = self._encode_samples(samples, info, raw_pcm_bytes)
+            with stages.span("session.finish"):
+                info.update_frame_sizes(sizes)
+                info.md5 = md5
 
-        blocks = [streaminfo_block(info, is_last=False)]
-        if seek_interval:
-            pts = build_seekpoints(sizes, block, seek_interval, info.interchannel_samples)
-            blocks.append(seek_table_block(pts, is_last=False))
-        blocks.append(vorbis_comment_block(is_last=False, tags=tags))
-        for extra in extra_metadata or []:
-            blocks.append(extra)
-        if padding > 0:
-            blocks.append(padding_block(padding, is_last=False))
-        blocks[-1] = set_last_flag(blocks[-1])
-        return b"".join(blocks) + stream
+                blocks = [streaminfo_block(info, is_last=False)]
+                if seek_interval:
+                    pts = build_seekpoints(sizes, block, seek_interval, info.interchannel_samples)
+                    blocks.append(seek_table_block(pts, is_last=False))
+                blocks.append(vorbis_comment_block(is_last=False, tags=tags))
+                for extra in extra_metadata or []:
+                    blocks.append(extra)
+                if padding > 0:
+                    blocks.append(padding_block(padding, is_last=False))
+                blocks[-1] = set_last_flag(blocks[-1])
+                return b"".join(blocks) + stream
 
     def _encode_samples(self, samples: np.ndarray, info: StreamInfo,
                         raw_pcm_bytes: Optional[bytes]):
@@ -137,9 +140,10 @@ class Encoder:
         md5_box = {}
 
         def _md5_work():
-            raw = (raw_pcm_bytes if raw_pcm_bytes is not None
-                   else reconstruct_raw_bytes(samples, self.bit_depth))
-            md5_box["md5"] = native.md5(raw)
+            with stages.span("session.md5"):
+                raw = (raw_pcm_bytes if raw_pcm_bytes is not None
+                       else reconstruct_raw_bytes(samples, self.bit_depth))
+                md5_box["md5"] = native.md5(raw)
 
         batch = samples[:, : n_full * block].reshape(c, n_full, block).transpose(1, 0, 2)
         stream, sizes = self.pipeline.encode_frames_stream(
@@ -165,21 +169,23 @@ def encode_to_file(
 
     ``out_file`` must be a seekable binary file object.
     """
-    cfg = config or EncoderConfig.default(samples.shape[0])
-    enc = Encoder(cfg, info.bit_depth, device)
+    with stages.entry("encode.call"):
+        with stages.span("session.setup"):
+            cfg = config or EncoderConfig.default(samples.shape[0])
+            enc = Encoder(cfg, info.bit_depth, device)
 
-    out_file.write(b"\x00" * HEADER_SIZE)  # skipHeader
-    out_file.write(vorbis_comment_block(is_last=True))
-    stream, sizes, md5 = enc._encode_samples(samples, info, raw_pcm_bytes)
-    out_file.write(stream)
-    info.update_frame_sizes(sizes)
-    info.md5 = md5
+        out_file.write(b"\x00" * HEADER_SIZE)  # skipHeader
+        out_file.write(vorbis_comment_block(is_last=True))
+        stream, sizes, md5 = enc._encode_samples(samples, info, raw_pcm_bytes)
+        out_file.write(stream)
+        info.update_frame_sizes(sizes)
+        info.md5 = md5
 
-    out_file.flush()
-    out_file.seek(0)
-    out_file.write(streaminfo_block(info, is_last=False)[:HEADER_SIZE])
-    out_file.flush()
-    return info
+        out_file.flush()
+        out_file.seek(0)
+        out_file.write(streaminfo_block(info, is_last=False)[:HEADER_SIZE])
+        out_file.flush()
+        return info
 
 
 def _default_meta_chain(info: StreamInfo):
@@ -404,16 +410,17 @@ def encode_files(
     default metadata (two-pass STREAMINFO + empty VorbisComment).
     ``ogg=True`` writes each output as Ogg-FLAC in the same single
     streaming pass (byte-identical to transmuxing the native stream)."""
-    return _encode_files_core(
-        in_paths,
-        lambda i: open(in_paths[i], "rb"),
-        lambda i: open(out_paths[i], "wb"),
-        close_out=True,
-        config=config,
-        device=device,
-        frames_per_chunk=frames_per_chunk,
-        ogg=ogg,
-    )
+    with stages.entry("encode.call"):
+        return _encode_files_core(
+            in_paths,
+            lambda i: open(in_paths[i], "rb"),
+            lambda i: open(out_paths[i], "wb"),
+            close_out=True,
+            config=config,
+            device=device,
+            frames_per_chunk=frames_per_chunk,
+            ogg=ogg,
+        )
 
 
 def _encode_files_core(
@@ -467,17 +474,18 @@ def encode_wav_bytes_many(
     config 4): the bytes-in/bytes-out convenience wrapper around the
     streaming fused core (``encode_files`` is the file-to-file form with
     O(device batch) host memory)."""
-    sinks = [io.BytesIO() for _ in wav_bytes_list]
-    _encode_files_core(
-        wav_bytes_list,
-        lambda i: io.BytesIO(wav_bytes_list[i]),
-        lambda i: sinks[i],
-        close_out=False,
-        config=config,
-        device=device,
-        frames_per_chunk=None,
-    )
-    return [s.getvalue() for s in sinks]
+    with stages.entry("encode.call"):
+        sinks = [io.BytesIO() for _ in wav_bytes_list]
+        _encode_files_core(
+            wav_bytes_list,
+            lambda i: io.BytesIO(wav_bytes_list[i]),
+            lambda i: sinks[i],
+            close_out=False,
+            config=config,
+            device=device,
+            frames_per_chunk=None,
+        )
+        return [s.getvalue() for s in sinks]
 
 
 def encode_wav_bytes(
@@ -493,15 +501,21 @@ def encode_wav_bytes(
     """The wav2flac path: WAV bytes in, FLAC bytes out
     (src/main.zig + src/wav2flac.zig), encoded on ``device`` (the card
     unless the caller asks for the CPU; without a card, cuda raises)."""
-    wav = WavReader.from_bytes(wav_bytes)
-    cfg = config or EncoderConfig.default(wav.channels)
-    info = wav.flac_streaminfo(cfg.block_size)
-    enc = Encoder(cfg, wav.bit_depth, device)
-    return enc.encode_stream(
-        wav.planar_samples(), info, raw_pcm_bytes=bytes(wav.raw_pcm_bytes()),
-        tags=tags, seek_interval=seek_interval, padding=padding,
-        extra_metadata=extra_metadata,
-    )
+    with stages.entry("encode.call"):
+        with stages.span("wav.parse"):
+            wav = WavReader.from_bytes(wav_bytes)
+        with stages.span("session.setup"):
+            cfg = config or EncoderConfig.default(wav.channels)
+            info = wav.flac_streaminfo(cfg.block_size)
+            enc = Encoder(cfg, wav.bit_depth, device)
+        with stages.span("wav.planar_samples"):
+            samples = wav.planar_samples()
+        with stages.span("wav.raw_copy"):
+            raw = bytes(wav.raw_pcm_bytes())
+        return enc.encode_stream(
+            samples, info, raw_pcm_bytes=raw, tags=tags, seek_interval=seek_interval,
+            padding=padding, extra_metadata=extra_metadata,
+        )
 
 
 def _count_seekpoints(total_samples: int, block: int, interval: int) -> int:
@@ -555,10 +569,11 @@ def encode_file_streaming(
         # negative interval passes the truthiness gates below
         raise ValueError(f"seek_interval must be positive, got {seek_interval}")
 
-    with WavStreamReader.open(input_path) as wav:
-        cfg = config or EncoderConfig.default(wav.channels)
-        info = wav.flac_streaminfo(cfg.block_size)
-        enc = Encoder(cfg, wav.bit_depth, device)
+    with stages.entry("encode.call"), WavStreamReader.open(input_path) as wav:
+        with stages.span("session.setup"):
+            cfg = config or EncoderConfig.default(wav.channels)
+            info = wav.flac_streaminfo(cfg.block_size)
+            enc = Encoder(cfg, wav.bit_depth, device)
         block = cfg.block_size
         if frames_per_chunk is None:
             frames_per_chunk = enc.pipeline.batch_size

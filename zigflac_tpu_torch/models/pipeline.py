@@ -71,12 +71,12 @@ def compact_shape(config: EncoderConfig, depth: int, c: int, block_size: int,
     return hstatic, max_words, capb
 
 
-def to_device(a: np.ndarray, device: torch.device, stats: dict | None = None) -> torch.Tensor:
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> device tensor; from pinned memory on a CUDA device,
-    so the copy does not wait for the work already queued. Adds the bytes
-    to ``stats["h2d_bytes"]`` when given."""
-    if stats is not None:
-        stats["h2d_bytes"] += a.nbytes
+    so the copy does not wait for the work already queued. Counts the
+    bytes as ``pipeline.h2d_bytes`` (``utils/stages.py``); its callers
+    time it as the ``pipeline.h2d`` span."""
+    stages.count("pipeline.h2d_bytes", a.nbytes)
     t = torch.from_numpy(np.require(a, requirements="CW"))
     if device.type == "cuda":
         t = t.pin_memory()
@@ -161,12 +161,13 @@ def _encode_batch_compact(
     return stream, torch.cat([frame_bytes, total_words[None]])
 
 
-def _collect_aligned(stream: torch.Tensor, meta: torch.Tensor, nreal: int,
-                     frame_cap: int, stats: dict):
+def _collect_aligned(stream: torch.Tensor, meta: torch.Tensor, nreal: int, frame_cap: int):
     """Fetch one batch's word-aligned compact stream and tighten it to the
-    exact frame-byte concatenation. None on capacity overflow."""
-    meta = meta.cpu().numpy()
-    stats["d2h_bytes"] += meta.nbytes
+    exact frame-byte concatenation. None on capacity overflow. The fetch of
+    ``meta`` is where the host waits for the batch's device work."""
+    with stages.span("pipeline.wait"):
+        meta = meta.cpu().numpy()
+    stages.count("pipeline.d2h_bytes", meta.nbytes)
     fsz = meta[:nreal]
     if int(fsz.max()) > frame_cap:
         return None  # some frame out-sized its per-frame word budget
@@ -178,9 +179,11 @@ def _collect_aligned(stream: torch.Tensor, meta: torch.Tensor, nreal: int,
     # real frames are the stream prefix; padded tail frames may overflow
     if need > stream.shape[0]:
         return None
-    sw = stream[:need].cpu().numpy()
-    stats["d2h_bytes"] += sw.nbytes
-    return assemble_ranges(sw.astype(">i4").tobytes(), woff, fsz), fsz
+    with stages.span("pipeline.d2h"):
+        sw = stream[:need].cpu().numpy()
+    stages.count("pipeline.d2h_bytes", sw.nbytes)
+    with stages.span("pipeline.assemble"):
+        return assemble_ranges(sw.astype(">i4").tobytes(), woff, fsz), fsz
 
 
 class DevicePipeline:
@@ -200,13 +203,12 @@ class DevicePipeline:
         self.bit_depth = bit_depth
         self.device = resolve_device(device)
         self.batch_size = batch_size
-        # host<->device transfer accounting for this pipeline
-        self.transfer_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
         # None: a single device
         self._mesh = mesh if mesh is not None else _product_mesh(self.device)
 
     def _to_device(self, a: np.ndarray, device=None) -> torch.Tensor:
-        return to_device(a, self.device if device is None else device, self.transfer_stats)
+        with stages.span("pipeline.h2d"):
+            return to_device(a, self.device if device is None else device)
 
     def _narrow(self, chunk: np.ndarray) -> np.ndarray:
         if self.bit_depth <= 16:
@@ -214,7 +216,9 @@ class DevicePipeline:
         return chunk
 
     def _feed(self, chunk: np.ndarray, device=None) -> torch.Tensor:
-        return self._to_device(self._narrow(chunk), device).to(torch.int32)
+        with stages.span("pipeline.h2d"):
+            dev = self.device if device is None else device
+            return to_device(self._narrow(chunk), dev).to(torch.int32)
 
     def _run_compact(self, rec: dict, tier: int):
         chunk = rec["chunk"]
@@ -222,6 +226,8 @@ class DevicePipeline:
         device = rec.get("device")  # a shard's, on a mesh
         hstatic, max_words, capb = compact_shape(self.config, self.bit_depth, c, B,
                                                  rec["rate"], tier, chunk.shape[0])
+        stages.count("pipeline.frames_real", rec["nreal"])
+        stages.count("pipeline.frames_encoded", chunk.shape[0])
         stream, meta = _encode_batch_compact(
             self._feed(chunk, device),
             self._to_device(rec["fns"].astype(np.int64), device),
@@ -272,9 +278,10 @@ class DevicePipeline:
             got = self.collect_batch(p, info)
             chunks.append(got[0])
             sizes.append(got[1])
-        return b"".join(chunks), (
-            np.concatenate(sizes) if sizes else np.zeros(0, np.int64)
-        )
+        with stages.span("pipeline.join"):
+            return b"".join(chunks), (
+                np.concatenate(sizes) if sizes else np.zeros(0, np.int64)
+            )
 
     def dispatch_batch(self, chunk: np.ndarray, fns: np.ndarray, info) -> dict:
         """Dispatch one batch of full frames ``[n<=bs, C, B]`` at tier-0
@@ -283,34 +290,36 @@ class DevicePipeline:
         size) by repeating its last frame. Raises ValueError, before any
         device work, for a block whose partition order the analysis cannot
         hold (``check_partition_order``)."""
-        check_partition_order(chunk.shape[-1], self.config.max_rice_order)
-        nreal = chunk.shape[0]
-        ndev = self._mesh.size if self._mesh is not None else 1
-        bucket = min(self.batch_size, _next_pow2(nreal))
-        if bucket % ndev:  # shard evenly over the mesh
-            bucket += ndev - bucket % ndev
-        if nreal < bucket:
-            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bucket - nreal, 0)])
-            fns = np.concatenate([fns, np.repeat(fns[-1:], bucket - nreal)])
-        rec = {"chunk": chunk, "nreal": nreal, "fns": fns, "rate": info.sample_rate}
-        if self._mesh is None:
-            rec["out"] = self._run_compact(rec, 0)
-        else:
-            from ..parallel.mesh import encode_compact_sharded
+        with stages.span("pipeline.dispatch_batch"):
+            check_partition_order(chunk.shape[-1], self.config.max_rice_order)
+            nreal = chunk.shape[0]
+            ndev = self._mesh.size if self._mesh is not None else 1
+            bucket = min(self.batch_size, _next_pow2(nreal))
+            if bucket % ndev:  # shard evenly over the mesh
+                bucket += ndev - bucket % ndev
+            if nreal < bucket:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bucket - nreal, 0)])
+                fns = np.concatenate([fns, np.repeat(fns[-1:], bucket - nreal)])
+            rec = {"chunk": chunk, "nreal": nreal, "fns": fns, "rate": info.sample_rate}
+            if self._mesh is None:
+                rec["out"] = self._run_compact(rec, 0)
+            else:
+                from ..parallel.mesh import encode_compact_sharded
 
-            rec["rows"] = encode_compact_sharded(
-                self._narrow(chunk), fns, self.config, self.bit_depth, info.sample_rate, 0,
-                self._mesh, nreal=nreal, transfer_stats=self.transfer_stats)
-        return rec
+                rec["rows"] = encode_compact_sharded(
+                    self._narrow(chunk), fns, self.config, self.bit_depth, info.sample_rate,
+                    0, self._mesh, nreal=nreal)
+            return rec
 
     def dispatch_tail(self, tail: np.ndarray, frame_number: int, info) -> dict:
         """Dispatch a ragged final frame ``[C, rem]`` at its exact block
         size, numbered ``frame_number``; refused as ``dispatch_batch``."""
-        check_partition_order(tail.shape[-1], self.config.max_rice_order)
-        rec = {"chunk": tail[None, ...], "nreal": 1,
-               "fns": np.array([frame_number], np.int64), "rate": info.sample_rate}
-        rec["out"] = self._run_compact(rec, 0)
-        return rec
+        with stages.span("pipeline.dispatch_tail"):
+            check_partition_order(tail.shape[-1], self.config.max_rice_order)
+            rec = {"chunk": tail[None, ...], "nreal": 1,
+                   "fns": np.array([frame_number], np.int64), "rate": info.sample_rate}
+            rec["out"] = self._run_compact(rec, 0)
+            return rec
 
     def collect_batch(self, pending: dict, info) -> Tuple[bytes, np.ndarray]:
         """Fetch one dispatched batch's frame bytes + sizes, re-encoding
@@ -318,14 +327,14 @@ class DevicePipeline:
         each of this process's shards like a single-device batch, and ONLY
         overflowing shards re-encode, each on its own device with its own
         rows; then the processes exchange their parts."""
-        if "rows" in pending:
-            return self._collect_sharded(pending)
-        stream, meta, frame_cap = pending["out"]
-        got = _collect_aligned(stream, meta, pending["nreal"], frame_cap,
-                               self.transfer_stats)
-        if got is None:
-            got = self._encode_overflow(pending)
-        return got
+        with stages.span("pipeline.collect_batch"):
+            if "rows" in pending:
+                return self._collect_sharded(pending)
+            stream, meta, frame_cap = pending["out"]
+            got = _collect_aligned(stream, meta, pending["nreal"], frame_cap)
+            if got is None:
+                got = self._encode_overflow(pending)
+            return got
 
     def _collect_sharded(self, pending: dict) -> Tuple[bytes, np.ndarray]:
         from ..parallel import distributed
@@ -338,8 +347,7 @@ class DevicePipeline:
         for s in sorted(rows):  # padding-only shards have no row
             stream, meta = rows[s]
             local_real = min(per, nreal - s * per)
-            got = _collect_aligned(stream, meta[:-1], local_real, frame_cap,
-                                   self.transfer_stats)
+            got = _collect_aligned(stream, meta[:-1], local_real, frame_cap)
             if got is None:  # this shard's rows only, through the ladder
                 lo = s * per
                 got = self._encode_overflow({
@@ -359,7 +367,7 @@ class DevicePipeline:
         nreal = rec["nreal"]
         for tier in range(1, len(CAPACITY_LADDER)):
             stream, meta, frame_cap = self._run_compact(rec, tier)
-            got = _collect_aligned(stream, meta, nreal, frame_cap, self.transfer_stats)
+            got = _collect_aligned(stream, meta, nreal, frame_cap)
             if got is not None:
                 return got
         # exact worst case: the padded words path
@@ -368,6 +376,8 @@ class DevicePipeline:
         hstatic, max_words, _ = compact_shape(self.config, self.bit_depth, c, B, rec["rate"],
                                               None, chunk.shape[0])
         device = rec.get("device")
+        stages.count("pipeline.frames_real", nreal)
+        stages.count("pipeline.frames_encoded", chunk.shape[0])
         words, total_bits = _encode_batch(
             self._feed(chunk, device),
             self._to_device(rec["fns"].astype(np.int64), device),
@@ -377,10 +387,11 @@ class DevicePipeline:
         byte_len = (total_bits + 7) >> 3
         # the host assembles each frame with its CRC
         crcs, _ = crc16_frames(words, byte_len, write=False)
-        words = words[:nreal].cpu().numpy().view(np.uint32)
-        byte_len = byte_len[:nreal].cpu().numpy()
-        crcs = crcs[:nreal].cpu().numpy()
-        self.transfer_stats["d2h_bytes"] += words.nbytes + byte_len.nbytes + crcs.nbytes
+        with stages.span("pipeline.d2h"):
+            words = words[:nreal].cpu().numpy().view(np.uint32)
+            byte_len = byte_len[:nreal].cpu().numpy()
+            crcs = crcs[:nreal].cpu().numpy()
+        stages.count("pipeline.d2h_bytes", words.nbytes + byte_len.nbytes + crcs.nbytes)
         if (byte_len > words.shape[1] * 4).any():
             raise RuntimeError("frame exceeded hard packer capacity")
         return assemble_frames(words, byte_len, crcs), byte_len + 2

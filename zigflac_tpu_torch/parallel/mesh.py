@@ -96,7 +96,6 @@ def encode_compact_sharded(
     mesh: Mesh,
     *,
     nreal: int | None = None,
-    transfer_stats: dict | None = None,
 ):
     """Sharded encode of host frames ``[N, C, B]`` (``N`` divisible by the
     mesh size; int16 or int32) and their ``[N]`` frame numbers -> ``(rows,
@@ -114,6 +113,7 @@ def encode_compact_sharded(
     collective once per call, whatever its own flags say."""
     from ..models.pipeline import _encode_batch_compact, compact_shape, to_device
     from ..ops.bitpack import ALIGN_W
+    from ..utils import stages
 
     n, c, B = frames.shape
     ndev = mesh.size
@@ -130,10 +130,13 @@ def encode_compact_sharded(
         if local_real <= 0:
             continue  # batch padding only: nothing to collect
         dev = mesh.entries[s][1]
+        with stages.span("pipeline.h2d"):
+            rows_in = to_device(frames[s * per : (s + 1) * per], dev).to(torch.int32)
+            fns_in = to_device(frame_numbers[s * per : (s + 1) * per].astype(np.int64), dev)
+        stages.count("pipeline.frames_real", local_real)
+        stages.count("pipeline.frames_encoded", per)
         stream, meta = _encode_batch_compact(
-            to_device(frames[s * per : (s + 1) * per], dev, transfer_stats).to(torch.int32),
-            to_device(frame_numbers[s * per : (s + 1) * per].astype(np.int64), dev,
-                      transfer_stats),
+            rows_in, fns_in,
             config=config, depth=depth, hstatic=hstatic, block_size=B,
             max_words=max_words, capb=capb,
         )
