@@ -40,6 +40,12 @@ Phases:
      config 2;
      config 1's batch timed in turns with the plain version, beside
      symbols_bound.
+     2-unpack: the PCM unpack kernel against its plain version at every
+     depth 4-32 (1-8 channels, bucket rows past nreal, one-sample and
+     777-sample tail rows), then on the bytes of the first 1024 frames of
+     config 1 (16 bits) and config 2 (24 bits), equal to the host
+     de-interleave too, each timed beside its plain version and
+     unpack_bound.
      2-analysis: the analysis kernels against their plain versions, every
      output field equal: zf_analyze_fixed on random planes at depths 8-32
      and the 33-bit int64 side plane, a wide-mode disqualification of each
@@ -160,7 +166,10 @@ Every encode or decode path under test in this process (phases 3-10 and
 kernels' counts set to 0 just before it and read just after: it must have
 launched its kernels (for an encode the analysis, symbols, deposit and
 CRC-16 kernels, and the Rice kernel with LPC; for a decode the synthesis) and
-never called a plain version. Any failure raises, so the exit code is
+never called a plain version. The PCM unpack kernel must have launched
+once a dispatch on a path that took the card-fed route (every
+encode_wav_bytes on the card, each of whose encoded rows must come from
+it) and never on any other path. Any failure raises, so the exit code is
 not 0. Phases 8 to 11 work in a temporary directory, removed at the end.
 The last line is one JSON object naming the card; the line before it lists
 each kernel's launches, error against its plain version, times and bound.
@@ -344,6 +353,31 @@ def crc_bound(byte_len: np.ndarray, w: int):
     frame_bytes = int(np.minimum(byte_len, 4 * w).sum())
     nbytes = frame_bytes + byte_len.size * (8 + 8 + 2)
     return (nbytes, *_bound(nbytes, CRC_INT32_OPS_PER_BYTE * frame_bytes))
+
+
+# INT32 operations of csrc/unpack_steps.cuh zf_unpack_sample: a load, a shift
+# and an OR a container byte; the subtract, shift and store a sample
+UNPACK_INT32_OPS_PER_BYTE = 3
+UNPACK_INT32_OPS_PER_SAMPLE = 3
+
+
+def unpack_bound(n: int, c: int, b: int, nb: int):
+    """(bytes, ms, bound_by, ops_ms) of one PCM unpack launch into [n, c, b]
+    int32: each output sample written once (4 B) and its nb container bytes
+    read once."""
+    samples = n * c * b
+    nbytes = samples * (nb + 4)
+    ops = samples * (UNPACK_INT32_OPS_PER_BYTE * nb + UNPACK_INT32_OPS_PER_SAMPLE)
+    return (nbytes, *_bound(nbytes, ops))
+
+
+def unpack_batch(WavReader, wav: bytes, frames: int = 1024, block: int = BLOCK):
+    """(data uint8 numpy, channels, nb, depth, block, n) of a WAV's first
+    ``frames`` full frames, as ``DevicePipeline.dispatch_pcm`` sends them."""
+    r = WavReader.from_bytes(wav)
+    n = min(frames, r.samples_count // block)
+    pcm = np.frombuffer(r.raw_pcm_bytes(), np.uint8)[: n * block * r.channels * r.bytes_per_sample]
+    return pcm, r.channels, r.bytes_per_sample, r.bit_depth, block, n
 
 
 # INT32 operations a column in csrc/symbols_steps.cuh zf_sym_column: the
@@ -644,7 +678,7 @@ def phase7_config2(env, write_wav) -> bytes:
     if _sha(wav2) != CONFIG2_WAV_SHA:
         raise AssertionError("config 2 input synthesis drifted")
     (flac, wall, per_batch), k, _ = env.counted(
-        "config 2", lambda: env.timed_encode(wav2, None))
+        "config 2", lambda: env.timed_encode(wav2, None), fed=True)
     env.check("config 2", flac, CONFIG2_FLAC_BYTES, CONFIG2_FLAC_SHA)
     _log("7", flac_bytes=len(flac), ratio=len(flac) / len(wav2), wall_s=wall,
          x_realtime=CONFIG2_SAMPLES / CONFIG2_RATE / wall, kernel_launches=k, plain_calls=0,
@@ -1785,7 +1819,7 @@ def main() -> int:
     from zigflac_tpu_torch import decoder
     from zigflac_tpu_torch.crc import crc16 as crc16_bytes
     from zigflac_tpu_torch.ops import (_build, analyze, bitpack, crc16, deposit, lpc, symbols,
-                                       synth)
+                                       synth, unpack)
     from zigflac_tpu_torch.utils import stages
     from zigflac_tpu_torch.wav import WavReader, write_wav
 
@@ -1998,6 +2032,46 @@ def main() -> int:
         sym_batches)
     del sym_batches
 
+    # -- phase 2-unpack: every depth, then config 1's and config 2's batches ---
+    unpack_watch = 0
+    for depth in range(4, 33):
+        nb, c = (depth + 7) // 8, 1 + depth % 8
+        data = torch.from_numpy(np.random.default_rng(depth).integers(
+            0, 256, 5 * 777 * c * nb, dtype=np.uint8)).to(dev)
+        for block, nreal, n in ((777, 5, 8), (1, 1, 1), (777, 1, 1)):
+            got = unpack.unpack_pcm(data, c, nb, depth, block, nreal, n)
+            want = unpack.unpack_pcm_plain(data, c, nb, depth, block, nreal, n)
+            if not torch.equal(got, want):
+                raise AssertionError(f"unpack: kernel != plain at depth {depth}, {c} channels, "
+                                     f"block {block}, {nreal} of {n} rows")
+            unpack_watch += 1
+    unpack_streams = {}
+    for name, wav in (("config1", wav1), ("config2", wav2_in)):
+        pcm, c, nb, depth, block, n = unpack_batch(WavReader, wav)
+        data = torch.from_numpy(pcm.copy()).to(dev)
+        got = unpack.unpack_pcm(data, c, nb, depth, block, n, n)
+        planar = WavReader.from_bytes(wav).planar_samples()[:, : n * block]
+        if not (torch.equal(got, unpack.unpack_pcm_plain(data, c, nb, depth, block, n, n))
+                and np.array_equal(got.cpu().numpy(),
+                                   planar.reshape(c, n, block).transpose(1, 0, 2))):
+            raise AssertionError(f"unpack: {name}'s batch differs from the host de-interleave")
+        b = unpack_bound(n, c, block, nb)
+        unpack_streams[name] = dict(
+            shape=[n, c, block], nb=nb,
+            kernel_ms=[cuda_ms(torch, lambda: unpack.unpack_pcm(data, c, nb, depth, block, n, n))
+                       for _ in range(2)],
+            plain_ms=cuda_ms(torch, lambda: unpack.unpack_pcm_plain(data, c, nb, depth, block,
+                                                                    n, n), reps=5),
+            bound_bytes=b[0], bound_ms=b[1], bound_by=b[2], bound_ops_ms=b[3])
+        del data, got, planar
+    _log("2-unpack", watch_cases_equal=unpack_watch, streams=unpack_streams)
+    u1 = unpack_streams["config1"]
+    unpack_entry = {
+        "name": "unpack_pcm", "route": "cuda", "source": "zigflac_tpu_torch/csrc/unpack.cu",
+        "replaces": None, "max_abs_err": 0, "ms": sum(u1["kernel_ms"]) / 2,
+        "plain_ms": u1["plain_ms"], "bound_ms": u1["bound_ms"], "bound_by": u1["bound_by"],
+        "library_ms": None}
+
     # -- phase 2-analysis: the planes analyze_planes hands the kernel ---------
     def batch_planes(wav, depth):
         """One batch's (planes, wide, max_param) as plan_frames_stereo makes
@@ -2043,24 +2117,46 @@ def main() -> int:
     # the CPU port's bytes for phase 6's noise batch, made before any counted path
     noise_cpu = zt.encode_wav_bytes(wav_noise, device="cpu")
 
-    launches = {"total": 0, "global_rows": 0, "analysis": 0, "rice": 0, "crc": 0, "symbols": 0}
+    launches = {"total": 0, "global_rows": 0, "analysis": 0, "rice": 0, "crc": 0, "symbols": 0,
+                "unpack": 0}
 
-    def counted(path, fn, lpc=False):
+    def counted(path, fn, lpc=False, fed=False):
         """Run one encode path with the counts at 0 before it; it must
         launch the analysis, symbols, deposit and CRC kernels (and, with
-        ``lpc``, the Rice kernel) and never call a plain version."""
-        for m in (deposit, synth, analyze, crc16, symbols):
+        ``lpc``, the Rice kernel) and never call a plain version. The PCM
+        unpack must launch once a dispatch where the path took the card-fed
+        route (``fed``: it must, and encode every row from the unpack's
+        frames), else never."""
+        for m in (deposit, synth, analyze, crc16, symbols, unpack):
             m.reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
+        armed = stages.SPANS is None
+        if armed:
+            stages.SPANS, stages.COUNTS = [], {}
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            spans, counts = stages.totals(), dict(stages.COUNTS)
+        finally:
+            if armed:
+                stages.SPANS = stages.COUNTS = None
         k, g, p = deposit.KERNEL_LAUNCHES, deposit.GLOBAL_ROW_LAUNCHES, deposit.PLAIN_CALLS
         ka, kr, kc = analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES
         ks = symbols.KERNEL_LAUNCHES
         plain = (p + synth.PLAIN_CALLS + analyze.PLAIN_CALLS + crc16.PLAIN_CALLS
-                 + symbols.PLAIN_CALLS)
+                 + symbols.PLAIN_CALLS + unpack.PLAIN_CALLS)
         if k == 0 or ka == 0 or kc == 0 or ks == 0 or (lpc and kr == 0) or plain != 0:
             raise AssertionError(f"{path}: {k} deposit, {ka} analysis, {ks} symbols, {kr} Rice "
                                  f"and {kc} CRC launches, {plain} plain calls")
+        unpacked = counts.get("pipeline.frames_unpacked", 0)
+        dispatches = sum(spans[n][0] for n in ("pipeline.dispatch_batch",
+                                               "pipeline.dispatch_tail") if n in spans)
+        ku = unpack.KERNEL_LAUNCHES
+        if (fed and unpacked != counts.get("pipeline.frames_encoded")) or (
+                ku != (dispatches if unpacked else 0)):
+            raise AssertionError(f"{path}: {ku} unpack launches in {dispatches} dispatches, "
+                                 f"{unpacked} rows unpacked of "
+                                 f"{counts.get('pipeline.frames_encoded')} encoded")
+        launches["unpack"] += ku
         launches["total"] += k
         launches["global_rows"] += g
         launches["analysis"] += ka
@@ -2120,7 +2216,7 @@ def main() -> int:
         if case.get("lpc"):
             cfg = replace(cfg, prediction="lpc", lpc_order=case.get("order", 8))
         flac, _, _ = counted(case["name"], lambda: zt.encode_wav_bytes(wav, config=cfg, device=dev),
-                             lpc=bool(case.get("lpc")))
+                             lpc=bool(case.get("lpc")), fed=True)
         if _sha(flac) != ent["flac_sha256"]:
             raise AssertionError(f"{case['name']}: FLAC differs from the pinned stream")
     _log("3", corpus_cases=len(CORPUS), identical=True)
@@ -2130,7 +2226,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (flac, k, _) = counted("config 1", lambda: zt.encode_wav_bytes(wav1, device=dev))
+    (flac, k, _) = counted("config 1", lambda: zt.encode_wav_bytes(wav1, device=dev), fed=True)
     wall = time.perf_counter() - t0
     check("config 1", flac, CONFIG1_FLAC_BYTES, CONFIG1_FLAC_SHA)
     flac1 = flac
@@ -2213,7 +2309,7 @@ def main() -> int:
 
     # -- phase 5: config 3 (LPC) at full size ---------------------------------
     (flac, wall, per_batch), k, _ = counted(
-        "config 3", lambda: timed_encode(wav3, cfg_lpc), lpc=True)
+        "config 3", lambda: timed_encode(wav3, cfg_lpc), lpc=True, fed=True)
     check("config 3", flac, CONFIG3_FLAC_BYTES, CONFIG3_FLAC_SHA)
     flac3 = flac
     seconds3 = CONFIG3_SAMPLES / RATE
@@ -2253,7 +2349,7 @@ def main() -> int:
     del planes, lags, sel, res
 
     (flac, wall, _), k, _ = counted("config 1 with LPC", lambda: timed_encode(wav1, cfg_lpc),
-                                    lpc=True)
+                                    lpc=True, fed=True)
     check("config 1 with LPC", flac, CONFIG1_LPC_FLAC_BYTES, CONFIG1_LPC_FLAC_SHA)
     _log("5-285s", flac_bytes=len(flac), ratio=len(flac) / len(wav1), wall_s=wall,
          x_realtime=CONFIG1_SECONDS / wall, kernel_launches=k)
@@ -2263,13 +2359,14 @@ def main() -> int:
     for pred, (nbytes, sha) in DEPTH32_FLAC.items():
         (flac, wall, per_batch), k, g = counted(
             f"32-bit {pred}", lambda: timed_encode(wav32, replace(cfg1, prediction=pred)),
-            lpc=pred == "lpc")
+            lpc=pred == "lpc", fed=True)
         check(f"32-bit {pred}", flac, nbytes, sha)
         flac32 = flac  # the last one, LPC, goes on to the decode phases
         _log("6", prediction=pred, flac_bytes=len(flac), ratio=len(flac) / len(wav32),
              wall_s=wall, x_realtime=seconds32 / wall, kernel_launches=k,
              global_row_launches=g, stages_ms=per_batch)
-    flac, k, g = counted("32-bit noise", lambda: zt.encode_wav_bytes(wav_noise, device=dev))
+    flac, k, g = counted("32-bit noise", lambda: zt.encode_wav_bytes(wav_noise, device=dev),
+                         fed=True)
     if flac != noise_cpu:
         raise AssertionError("32-bit noise: the card's bytes differ from the CPU port's")
     if g == 0:
@@ -2277,7 +2374,7 @@ def main() -> int:
     _log("6-noise", frames=NOISE32_FRAMES, flac_bytes=len(flac), equals_cpu=True,
          kernel_launches=k, global_row_launches=g)
     flac_anti, k, _ = counted("32-bit antiphase", lambda: zt.encode_wav_bytes(
-        wav_anti, config=cfg_lpc, device=dev), lpc=True)
+        wav_anti, config=cfg_lpc, device=dev), lpc=True, fed=True)
     _log("6-antiphase", frames=ANTIPHASE32_FRAMES, flac_bytes=len(flac_anti), kernel_launches=k)
 
     # -- phase 2, the synthesis kernel's half, and phases 7-11 ----------------
@@ -2308,7 +2405,9 @@ def main() -> int:
     rice_entry["launches"] = launches["rice"]
     crc_entry["launches"] = launches["crc"]
     symbols_entry["launches"] = launches["symbols"]
-    print(json.dumps({"kernels": [synth_entry, fixed_entry, rice_entry, symbols_entry, crc_entry, {
+    unpack_entry["launches"] = launches["unpack"]
+    print(json.dumps({"kernels": [synth_entry, fixed_entry, rice_entry, symbols_entry, crc_entry,
+                                  unpack_entry, {
         "name": "deposit_words",
         "route": "cuda",
         "source": "zigflac_tpu_torch/csrc/deposit.cu",

@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the deposit, synthesis, analysis, CRC-16 and
-frame symbols kernels against their plain versions, and whole encodes and decodes on the
-card against the CPU path. Every test skips where
+"""The port on a CUDA card: the deposit, synthesis, analysis, CRC-16,
+frame symbols and PCM unpack kernels against their plain versions, and whole encodes and
+decodes on the card against the CPU path. Every test skips where
 torch.cuda.is_available() is false. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
 
@@ -17,7 +17,7 @@ import torch
 import zigflac_tpu_torch
 from zigflac_tpu_torch import EncoderConfig
 from zigflac_tpu_torch.models import pipeline
-from zigflac_tpu_torch.ops import deposit, synth
+from zigflac_tpu_torch.ops import deposit, synth, unpack
 from zigflac_tpu_torch.wav import write_wav
 
 pytestmark = pytest.mark.cuda
@@ -683,6 +683,83 @@ def test_encode_on_card_launches_every_kernel(rng):
         assert (analyze.PLAIN_CALLS == crc16.PLAIN_CALLS == deposit.PLAIN_CALLS
                 == symbols.PLAIN_CALLS == 0)
         assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("depth", range(4, 33))
+def test_unpack_kernel_matches_plain(rng, depth):
+    """zf_unpack_pcm == the plain version at every depth (its container of
+    (depth + 7) // 8 bytes, 1-8 channels): a bucket with rows past nreal,
+    a one-sample tail row and a 4095-sample one."""
+    nb, c = (depth + 7) // 8, 1 + depth % 8
+    data = torch.from_numpy(rng.integers(0, 256, 6 * 4095 * c * nb, dtype=np.uint8)).cuda()
+    for block, nreal, n in ((4095, 6, 8), (1, 1, 1), (4095, 1, 1), (300, 3, 3)):
+        unpack.reset_counts()
+        got = unpack.unpack_pcm(data, c, nb, depth, block, nreal, n)
+        assert (unpack.KERNEL_LAUNCHES, unpack.PLAIN_CALLS) == (1, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, unpack.unpack_pcm_plain(data, c, nb, depth, block, nreal, n))
+
+
+def test_unpack_kernel_refuses_without_launching(rng):
+    data = torch.zeros(64, dtype=torch.uint8, device="cuda")
+    unpack.reset_counts()
+    with pytest.raises(ValueError):
+        unpack.unpack_pcm(data, 2, 2, 16, 32, 1, 1)  # 64 bytes hold 16 frames
+    with pytest.raises(TypeError):
+        unpack.unpack_pcm(data.view(torch.int8), 2, 2, 16, 4, 1, 1)
+    assert unpack.KERNEL_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("depth,fields", [(16, dict()), (24, dict(prediction="lpc"))])
+def test_card_fed_encode_spans_and_counts(rng, depth, fields):
+    """encode_wav_bytes on the card takes the card-fed route: the CPU
+    route's bytes, one unpack a dispatch, every encoded row from the
+    unpack, no ``wav.planar_samples`` or ``wav.raw_copy`` span, and the
+    layers' spans add up to the call."""
+    from zigflac_tpu_torch.utils import stages
+
+    wav = _wav(rng, 3 * 4096 + 1234, 2, depth)
+    cfg = EncoderConfig(**fields)
+    assert pipeline.DevicePipeline(cfg, depth, "cuda:0").card_fed
+    unpack.reset_counts()
+    stages.SPANS, stages.COUNTS = [], {}
+    try:
+        got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda:0")
+        t, c = stages.totals(), dict(stages.COUNTS)
+    finally:
+        stages.SPANS = stages.COUNTS = None
+    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+    assert "wav.planar_samples" not in t and "wav.raw_copy" not in t
+    assert unpack.KERNEL_LAUNCHES == t["pipeline.dispatch_batch"][0] + t[
+        "pipeline.dispatch_tail"][0] == 2
+    assert unpack.PLAIN_CALLS == 0
+    assert c["pipeline.frames_unpacked"] == c["pipeline.frames_encoded"] >= 5
+    parts = sum(t[n][1] for n in ("wav.parse", "session.setup", "session.md5", "session.finish",
+                                  "pipeline.h2d", "pipeline.wait", "pipeline.d2h",
+                                  "pipeline.assemble", "pipeline.join") if n in t)
+    parts += sum(t[n][2] for n in ("pipeline.dispatch_batch", "pipeline.dispatch_tail",
+                                   "pipeline.collect_batch", "encode.call") if n in t)
+    assert parts == pytest.approx(t["encode.call"][1], rel=1e-9)
+
+
+def test_card_fed_staging_and_unpack_do_not_synchronize(rng):
+    """The card-fed dispatch's own steps, the pinned copy and the unpack,
+    never wait for the card once the pinned pool holds a block of the
+    batch's size; the frames equal the host de-interleave's."""
+    from zigflac_tpu_torch.wav import WavReader
+
+    r = WavReader.from_bytes(_wav(rng, 8 * 4096, 2, 16))
+    pipe = pipeline.DevicePipeline(EncoderConfig(), 16, "cuda:0")
+    pcm = r.raw_pcm_bytes()
+    pipe._stage_pcm(pcm)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = unpack.unpack_pcm(pipe._stage_pcm(pcm), 2, 2, 16, 4096, 8, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = r.planar_samples().reshape(2, 8, 4096).transpose(1, 0, 2)
+    assert np.array_equal(frames.cpu().numpy(), want)
 
 
 def test_plan_frames_on_card_does_not_synchronize(rng):

@@ -44,6 +44,11 @@ from ..wav import WavReader, WavStreamReader, reconstruct_raw_bytes
 from .pipeline import TAIL_DEVICE_MIN, DevicePipeline
 
 
+def _check_seek_interval(seek_interval: Optional[int]) -> None:
+    if seek_interval is not None and seek_interval <= 0:
+        raise ValueError(f"seek_interval must be positive, got {seek_interval}")
+
+
 def _tail_on_device(rem: int) -> bool:
     """Whether a ragged tail of ``rem`` samples is dispatched to the device.
     The port has no host oracle: every non-empty tail encodes on the device
@@ -108,26 +113,61 @@ class Encoder:
         that many zero bytes; ``extra_metadata`` takes pre-built blocks
         (built with is_last=False) — the last-block flag is fixed up here.
         """
-        if seek_interval is not None and seek_interval <= 0:
-            raise ValueError(f"seek_interval must be positive, got {seek_interval}")
-        block = self.config.block_size
+        _check_seek_interval(seek_interval)
         with stages.entry("encode.call"):
             stream, sizes, md5 = self._encode_samples(samples, info, raw_pcm_bytes)
-            with stages.span("session.finish"):
-                info.update_frame_sizes(sizes)
-                info.md5 = md5
+            return self._finish(stream, sizes, md5, info, tags, seek_interval, padding,
+                                extra_metadata)
 
-                blocks = [streaminfo_block(info, is_last=False)]
-                if seek_interval:
-                    pts = build_seekpoints(sizes, block, seek_interval, info.interchannel_samples)
-                    blocks.append(seek_table_block(pts, is_last=False))
-                blocks.append(vorbis_comment_block(is_last=False, tags=tags))
-                for extra in extra_metadata or []:
-                    blocks.append(extra)
-                if padding > 0:
-                    blocks.append(padding_block(padding, is_last=False))
-                blocks[-1] = set_last_flag(blocks[-1])
-                return b"".join(blocks) + stream
+    def encode_pcm(
+        self,
+        pcm: memoryview,
+        bytes_per_sample: int,
+        info: StreamInfo,
+        tags: Optional[List] = None,
+        seek_interval: Optional[int] = None,
+        padding: int = 0,
+        extra_metadata: Optional[List[bytes]] = None,
+    ) -> bytes:
+        """``encode_stream`` of a WAV's interleaved little-endian PCM bytes
+        (``WavReader.raw_pcm_bytes()``, ``bytes_per_sample`` bytes a
+        sample) in place of planar samples: the bytes cross to the device
+        once and are unpacked there (``DevicePipeline.encode_pcm_stream``),
+        and the MD5 hashes them where they are. ``encode_wav_bytes`` takes
+        this route where the pipeline is ``card_fed``."""
+        _check_seek_interval(seek_interval)
+        with stages.entry("encode.call"):
+            md5_box = {}
+
+            def _md5_work():
+                with stages.span("session.md5"):
+                    md5_box["md5"] = native.md5(pcm)
+
+            stream, sizes = self.pipeline.encode_pcm_stream(pcm, bytes_per_sample, info,
+                                                            overlap_work=_md5_work)
+            return self._finish(stream, sizes, md5_box["md5"], info, tags, seek_interval,
+                                padding, extra_metadata)
+
+    def _finish(self, stream: bytes, sizes: np.ndarray, md5: bytes, info: StreamInfo,
+                tags, seek_interval, padding, extra_metadata) -> bytes:
+        """The metadata blocks, with the finalized STREAMINFO, before the
+        frame stream."""
+        with stages.span("session.finish"):
+            info.update_frame_sizes(sizes)
+            info.md5 = md5
+
+            blocks = [streaminfo_block(info, is_last=False)]
+            if seek_interval:
+                pts = build_seekpoints(sizes, self.config.block_size, seek_interval,
+                                       info.interchannel_samples)
+                blocks.append(seek_table_block(pts, is_last=False))
+            blocks.append(vorbis_comment_block(is_last=False, tags=tags))
+            for extra in extra_metadata or []:
+                blocks.append(extra)
+            if padding > 0:
+                blocks.append(padding_block(padding, is_last=False))
+            blocks[-1] = set_last_flag(blocks[-1])
+            return b"".join(blocks) + stream
 
     def _encode_samples(self, samples: np.ndarray, info: StreamInfo,
                         raw_pcm_bytes: Optional[bytes]):
@@ -500,7 +540,10 @@ def encode_wav_bytes(
 ) -> bytes:
     """The wav2flac path: WAV bytes in, FLAC bytes out
     (src/main.zig + src/wav2flac.zig), encoded on ``device`` (the card
-    unless the caller asks for the CPU; without a card, cuda raises)."""
+    unless the caller asks for the CPU; without a card, cuda raises). On a
+    single CUDA device the WAV's PCM bytes go to the card as they are
+    (``Encoder.encode_pcm``); on a mesh or the CPU the host de-interleaves
+    them first."""
     with stages.entry("encode.call"):
         with stages.span("wav.parse"):
             wav = WavReader.from_bytes(wav_bytes)
@@ -508,6 +551,11 @@ def encode_wav_bytes(
             cfg = config or EncoderConfig.default(wav.channels)
             info = wav.flac_streaminfo(cfg.block_size)
             enc = Encoder(cfg, wav.bit_depth, device)
+        if enc.pipeline.card_fed:
+            return enc.encode_pcm(
+                wav.raw_pcm_bytes(), wav.bytes_per_sample, info, tags=tags,
+                seek_interval=seek_interval, padding=padding, extra_metadata=extra_metadata,
+            )
         with stages.span("wav.planar_samples"):
             samples = wav.planar_samples()
         with stages.span("wav.raw_copy"):
@@ -564,10 +612,9 @@ def encode_file_streaming(
     lacing depends only on packet lengths, which the two-pass protocol
     keeps fixed — ogg.OggStreamSink).
     """
-    if seek_interval is not None and seek_interval <= 0:
-        # _count_seekpoints never terminates for interval <= 0 and a
-        # negative interval passes the truthiness gates below
-        raise ValueError(f"seek_interval must be positive, got {seek_interval}")
+    # _count_seekpoints never terminates for interval <= 0 and a negative
+    # interval passes the truthiness gates below
+    _check_seek_interval(seek_interval)
 
     with stages.entry("encode.call"), WavStreamReader.open(input_path) as wav:
         with stages.span("session.setup"):

@@ -4,6 +4,10 @@ frames [N, C, B] PCM  ──(device)──>  dense frame-stream words + sizes
                                        │
                           (host) slice + write — no per-frame work
 
+On a single CUDA device ``encode_pcm_stream`` takes a WAV's interleaved
+PCM bytes as they are: each batch's bytes cross to the card once and the
+PCM unpack kernel (``ops/unpack.py``) makes its frames there.
+
 One batch function covers plane construction, stereo-mode and subframe
 selection, the Rice search (the CUDA analysis kernel on the card), bit
 packing (the CUDA deposit kernel), CRC-16 (the CUDA CRC kernel) and stream
@@ -32,6 +36,7 @@ from ..ops.analyze import check_partition_order, lpc_order_of, plan_frames
 from ..ops.bitpack import ALIGN_W, compact_stream_aligned, max_frame_words, pack_frames
 from ..ops.crc16 import crc16_frames
 from ..ops.header import HeaderStatic, header_static
+from ..ops.unpack import unpack_pcm
 from ..utils import stages
 from ..utils.config import EncoderConfig
 
@@ -206,6 +211,22 @@ class DevicePipeline:
         # None: a single device
         self._mesh = mesh if mesh is not None else _product_mesh(self.device)
 
+    @property
+    def card_fed(self) -> bool:
+        """Whether ``encode_wav_bytes`` hands this pipeline the WAV's own
+        bytes (``encode_pcm_stream``): a single CUDA device. A mesh takes
+        host chunks, and the CPU device planar samples."""
+        return self._mesh is None and self.device.type == "cuda"
+
+    def _bucket(self, nreal: int) -> int:
+        """The rows a batch of ``nreal`` frames is padded to: a power of
+        two, on a mesh then a multiple of its size."""
+        ndev = self._mesh.size if self._mesh is not None else 1
+        bucket = min(self.batch_size, _next_pow2(nreal))
+        if bucket % ndev:  # shard evenly over the mesh
+            bucket += ndev - bucket % ndev
+        return bucket
+
     def _to_device(self, a: np.ndarray, device=None) -> torch.Tensor:
         with stages.span("pipeline.h2d"):
             return to_device(a, self.device if device is None else device)
@@ -220,17 +241,37 @@ class DevicePipeline:
             dev = self.device if device is None else device
             return to_device(self._narrow(chunk), dev).to(torch.int32)
 
+    def _stage_pcm(self, pcm: memoryview) -> torch.Tensor:
+        """A batch's packed PCM bytes on the device. On a CUDA device they
+        go through pinned memory from torch's caching host allocator,
+        which reuses a block only once the copy out of it has run."""
+        with stages.span("pipeline.h2d"):
+            stages.count("pipeline.h2d_bytes", len(pcm))
+            host = torch.empty(len(pcm), dtype=torch.uint8,
+                               pin_memory=self.device.type == "cuda")
+            host.numpy()[:] = np.frombuffer(pcm, np.uint8)
+            return host.to(self.device, non_blocking=True)
+
+    def _frames(self, rec: dict) -> torch.Tensor:
+        """A batch's int32 frames on its device: those the PCM unpack made
+        at the dispatch (kept for re-encodes), else the host chunk fed
+        now. Counts the rows from the unpack as ``pipeline.frames_unpacked``."""
+        frames = rec.get("frames")
+        stages.count("pipeline.frames_unpacked", 0 if frames is None else frames.shape[0])
+        if frames is None:
+            frames = self._feed(rec["chunk"], rec.get("device"))  # a shard's device, on a mesh
+        return frames
+
     def _run_compact(self, rec: dict, tier: int):
-        chunk = rec["chunk"]
-        _, c, B = chunk.shape
-        device = rec.get("device")  # a shard's, on a mesh
+        frames = self._frames(rec)
+        n, c, B = frames.shape
         hstatic, max_words, capb = compact_shape(self.config, self.bit_depth, c, B,
-                                                 rec["rate"], tier, chunk.shape[0])
+                                                 rec["rate"], tier, n)
         stages.count("pipeline.frames_real", rec["nreal"])
-        stages.count("pipeline.frames_encoded", chunk.shape[0])
+        stages.count("pipeline.frames_encoded", n)
         stream, meta = _encode_batch_compact(
-            self._feed(chunk, device),
-            self._to_device(rec["fns"].astype(np.int64), device),
+            frames,
+            self._to_device(rec["fns"].astype(np.int64), frames.device),
             config=self.config, depth=self.bit_depth, hstatic=hstatic,
             block_size=B, max_words=max_words, capb=capb,
         )
@@ -270,6 +311,35 @@ class DevicePipeline:
             pending.append(self.dispatch_batch(chunk, fns, info))
         if tail is not None:
             pending.append(self.dispatch_tail(tail, first_frame_number + f, info))
+        return self._collect_all(pending, info, overlap_work)
+
+    def encode_pcm_stream(self, pcm: memoryview, bytes_per_sample: int, info: StreamInfo,
+                          overlap_work=None) -> Tuple[bytes, np.ndarray]:
+        """``encode_frames_stream`` of every frame of a WAV's interleaved
+        little-endian PCM bytes ``pcm`` (``info.interchannel_samples``
+        sample frames of ``info.channels`` samples, ``bytes_per_sample``
+        bytes each): each batch's bytes, and the ragged tail's, cross to
+        the device as they are (``dispatch_pcm``). A single device only."""
+        n = info.interchannel_samples
+        block = self.config.block_size
+        n_full, rem = divmod(n, block)
+        step = block * info.channels * bytes_per_sample  # bytes a full frame
+        if rem >= TAIL_DEVICE_MIN:
+            check_partition_order(rem, self.config.max_rice_order)
+        pending = []
+        for start in range(0, n_full, self.batch_size):
+            stop = min(start + self.batch_size, n_full)
+            pending.append(self.dispatch_pcm(pcm[start * step : stop * step], bytes_per_sample,
+                                             block, np.arange(start, stop, dtype=np.int64),
+                                             info))
+        if rem >= TAIL_DEVICE_MIN:
+            pending.append(self.dispatch_pcm(pcm[n_full * step :], bytes_per_sample, rem,
+                                             np.array([n_full], np.int64), info))
+        return self._collect_all(pending, info, overlap_work)
+
+    def _collect_all(self, pending: list, info, overlap_work) -> Tuple[bytes, np.ndarray]:
+        """Run ``overlap_work``, then collect every dispatched batch in order
+        and join their bytes and sizes."""
         if overlap_work is not None:
             overlap_work()
         chunks: List[bytes] = []
@@ -293,10 +363,7 @@ class DevicePipeline:
         with stages.span("pipeline.dispatch_batch"):
             check_partition_order(chunk.shape[-1], self.config.max_rice_order)
             nreal = chunk.shape[0]
-            ndev = self._mesh.size if self._mesh is not None else 1
-            bucket = min(self.batch_size, _next_pow2(nreal))
-            if bucket % ndev:  # shard evenly over the mesh
-                bucket += ndev - bucket % ndev
+            bucket = self._bucket(nreal)
             if nreal < bucket:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bucket - nreal, 0)])
                 fns = np.concatenate([fns, np.repeat(fns[-1:], bucket - nreal)])
@@ -309,6 +376,30 @@ class DevicePipeline:
                 rec["rows"] = encode_compact_sharded(
                     self._narrow(chunk), fns, self.config, self.bit_depth, info.sample_rate,
                     0, self._mesh, nreal=nreal)
+            return rec
+
+    def dispatch_pcm(self, pcm: memoryview, bytes_per_sample: int, block: int,
+                     fns: np.ndarray, info) -> dict:
+        """``dispatch_batch`` of ``len(fns)`` frames of ``block`` samples
+        given as interleaved little-endian PCM bytes (``info.channels``
+        samples of ``bytes_per_sample`` bytes a sample frame): the bytes
+        cross to the device as they are and ``unpack_pcm`` makes the int32
+        frames there, padded to the bucket as ``dispatch_batch`` pads. The
+        pending handle keeps them for a re-encode. A ragged tail (``block``
+        under the configured block size) is timed as
+        ``pipeline.dispatch_tail``. A single device only; refused as
+        ``dispatch_batch``."""
+        tail = block < self.config.block_size
+        with stages.span("pipeline.dispatch_tail" if tail else "pipeline.dispatch_batch"):
+            check_partition_order(block, self.config.max_rice_order)
+            nreal = len(fns)
+            bucket = self._bucket(nreal)
+            if nreal < bucket:
+                fns = np.concatenate([fns, np.repeat(fns[-1:], bucket - nreal)])
+            frames = unpack_pcm(self._stage_pcm(pcm), info.channels, bytes_per_sample,
+                                self.bit_depth, block, nreal, bucket)
+            rec = {"frames": frames, "nreal": nreal, "fns": fns, "rate": info.sample_rate}
+            rec["out"] = self._run_compact(rec, 0)
             return rec
 
     def dispatch_tail(self, tail: np.ndarray, frame_number: int, info) -> dict:
@@ -371,16 +462,15 @@ class DevicePipeline:
             if got is not None:
                 return got
         # exact worst case: the padded words path
-        chunk = rec["chunk"]
-        _, c, B = chunk.shape
+        frames = self._frames(rec)
+        n, c, B = frames.shape
         hstatic, max_words, _ = compact_shape(self.config, self.bit_depth, c, B, rec["rate"],
-                                              None, chunk.shape[0])
-        device = rec.get("device")
+                                              None, n)
         stages.count("pipeline.frames_real", nreal)
-        stages.count("pipeline.frames_encoded", chunk.shape[0])
+        stages.count("pipeline.frames_encoded", n)
         words, total_bits = _encode_batch(
-            self._feed(chunk, device),
-            self._to_device(rec["fns"].astype(np.int64), device),
+            frames,
+            self._to_device(rec["fns"].astype(np.int64), frames.device),
             config=self.config, depth=self.bit_depth, hstatic=hstatic,
             block_size=B, max_words=max_words,
         )
