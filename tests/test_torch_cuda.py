@@ -781,6 +781,56 @@ def test_plan_frames_on_card_does_not_synchronize(rng):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
 
 
+FLAC8 = dict(prediction="lpc", max_rice_order=6, lpc_order=12, lpc_precision=12,
+             apodization=("tukey(5e-1)", "partial_tukey(2)", "punchout_tukey(3)"))
+
+
+@pytest.mark.parametrize("fields", [dict(prediction="lpc", lpc_precision=15), FLAC8],
+                         ids=["one-window", "flac-8"])
+def test_lpc_search_on_card_does_not_synchronize(rng, fields):
+    """The LPC analysis of a batch, one window or six, with the search's
+    device interval and window tally armed, never waits for the card, and
+    decides what the CPU decides."""
+    from zigflac_tpu_torch.ops import analyze
+    from zigflac_tpu_torch.utils import stages
+
+    cfg = EncoderConfig(**fields)
+    frames = torch.from_numpy(_analysis_planes(rng, 2 * 16, 4096, 16).reshape(16, 2, 4096))
+    frames = frames.cuda()
+    analyze.plan_frames(frames, 16, cfg)  # the kernels built and loaded
+    torch.cuda.synchronize()
+    stages.SEARCH, stages.WINDOW_WINS = [], {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = analyze.plan_frames(frames, 16, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        search, wins = stages.SEARCH, stages.WINDOW_WINS
+        stages.SEARCH = stages.WINDOW_WINS = None
+    want = analyze.plan_frames(frames.cpu(), 16, cfg)
+    for name in analyze.FrameWirePlan._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    torch.cuda.synchronize()
+    assert len(search) == 1 and search[0][0].elapsed_time(search[0][1]) > 0
+    assert len(wins) == (1 if fields is FLAC8 else 0)
+    for tally in wins.values():
+        assert tally.device.type == "cuda" and tally.shape == (6,)
+
+
+def test_window_list_on_card_equals_cpu(rng):
+    """flac -8's six windows at order 12, 12-bit coefficients, through
+    encode_wav_bytes on the card (the card-fed route): the CPU's bytes, and
+    the card's decoder gives the samples back with the MD5 checked."""
+    wav = _wav(rng, 3 * 4096 + 1000, 2, 16)
+    cfg = EncoderConfig(**FLAC8)
+    got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda")
+    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+    synth.reset_counts()
+    back = zigflac_tpu_torch.decode_flac(got, device="cuda")
+    assert back.md5_ok and synth.KERNEL_LAUNCHES > 0
+    assert np.array_equal(back.samples, zigflac_tpu_torch.decode_flac(got, device="cpu").samples)
+
+
 # -- the frame symbols kernel ----------------------------------------------------------
 
 

@@ -10,7 +10,7 @@ each is its kernel's plain torch version. This package imports neither jax
 nor ``zigflac_tpu``.
 
 Covered: fixed prediction (orders 0-4) and LPC (orders 1-32, precision
-2-15) with ``stereo_auto`` or 1-8 independent channels, depths 8 to 32,
+2-15, one Q8 window or a list of them searched per plane) with ``stereo_auto`` or 1-8 independent channels, depths 8 to 32,
 any block size, ragged tails, wasted bits, MD5 + STREAMINFO +
 VorbisComment (+ SEEKTABLE, PADDING, PICTURE, CUESHEET); bytes in memory
 (``encode_wav_bytes``), file to file with O(device batch) host memory
@@ -37,7 +37,7 @@ from .models.encoder import (
     encode_wav_bytes,
     encode_wav_bytes_many,
 )
-from .utils.config import EncoderConfig
+from .utils.apodization import EncoderConfig
 from .wav import WavFormatError, WavReader, WavStreamReader
 
 __version__ = "0.1.0"

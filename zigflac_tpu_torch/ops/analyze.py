@@ -14,7 +14,9 @@ of the reference runs as integer tensor ops over a batch of planes:
   first-min (libFLAC/Encoder.zig:248-376);
 * the LPC candidate (``ops/lpc.py``, an extension: the reference stubs it),
   which competes with the best fixed order on estimated bits plus its
-  coefficient overhead.
+  coefficient overhead; where the configuration lists other apodization
+  windows than the one Tukey(0.5), the cheapest window's candidate
+  (``lpc_window_search``).
 
 Depth 32 runs wide: the 33-bit side plane is int64 and analyzed with
 ``bits_of_t = 64``, as the reference's i64 side samples are.
@@ -39,6 +41,8 @@ from typing import List, NamedTuple
 
 import torch
 
+from ..utils import stages
+from ..utils.apodization import TUKEY_HALF, windows_of
 from ..utils.config import EncoderConfig, MAX_FIXED_ORDER, MAX_RICE_PARAM_4BIT
 from . import lpc
 
@@ -443,6 +447,56 @@ def rice_estimate_planes(
     return bits, method, part_order, params
 
 
+class LpcSearch(NamedTuple):
+    """The cheapest window's LPC candidate of each plane."""
+
+    window: torch.Tensor      # i64: its index in the window list
+    order: torch.Tensor       # i64
+    residuals: torch.Tensor   # i32 [..., B]
+    qcoeffs: torch.Tensor     # i64 [..., 32]
+    shift: torch.Tensor       # i64
+    ok: torch.Tensor          # bool: some window gave a usable candidate
+    cost: torch.Tensor        # i64: Rice bits + 9 + order * precision
+    method: torch.Tensor      # i64
+    part_order: torch.Tensor  # i64
+    params: torch.Tensor      # i64 [..., 256]
+
+
+def lpc_window_search(
+    planes: torch.Tensor,
+    windows: torch.Tensor,
+    lpc_order: int,
+    precision: int,
+    max_rice_order: int,
+    max_param: int,
+) -> LpcSearch:
+    """Every window of ``windows`` (Q8 int64 [W, B]) over every plane
+    ``[..., B]`` at once, along a leading window axis: the lag sums, the
+    Levinson candidates, the choice, the quantization, the residual and its
+    Rice estimate, each as for one window. A window whose candidate is
+    unusable costs ``I64_MAX``; the cheapest wins, the first in list order
+    on a tie (strict ``<``)."""
+    W, B = windows.shape
+    x = planes.unsqueeze(0)
+    lags = lpc.lag_sums(x, lpc_order, windows.view((W,) + (1,) * (planes.dim() - 1) + (B,)))
+    pre = lpc.fixed_point_levinson(lags, lpc.lpc_candidate_orders(lpc_order))
+    order, qc, shift, ok = lpc.select_lpc_candidate(pre, B, precision)
+    res, fits = lpc.lpc_residuals(x.expand((W,) + tuple(planes.shape)), qc, shift, order,
+                                  lpc_order)
+    ok = ok & fits
+    bits, method, part_order, params = rice_estimate_planes(res, order, max_rice_order,
+                                                           max_param)
+    cost = torch.where(ok, bits + 9 + order * precision, I64_MAX)
+    best = argmin_first(cost)
+
+    def pick(t):
+        idx = best.view((1,) + best.shape + (1,) * (t.dim() - 1 - best.dim()))
+        return t.gather(0, idx.expand((1,) + t.shape[1:])).squeeze(0)
+
+    return LpcSearch(best, *(pick(t) for t in (order, res, qc, shift, ok, cost, method,
+                                                part_order, params)))
+
+
 def lpc_order_of(config: EncoderConfig) -> int:
     """The largest LPC order the analysis may pick: the configured one
     when the prediction is LPC, else 0 (no LPC subframes)."""
@@ -516,15 +570,31 @@ def analyze_planes(
     use_lpc = torch.zeros_like(ok)
     qcoeffs, qshift = zq, z
     if lpc_order:
-        # one LPC candidate per plane competes with the best fixed order on
-        # estimated bits plus its coefficient overhead (strict <)
-        l_order, res_lpc, l_q, l_shift, l_ok = lpc.analyze_lpc(
-            planes, lpc_order, config.lpc_precision
-        )
-        l_bits, l_method, l_po, l_params = rice_estimate_planes(
-            res_lpc, l_order, config.max_rice_order, max_param
-        )
-        l_cost = l_bits + 9 + l_order * config.lpc_precision
+        # one LPC candidate per plane (the cheapest window's, where several
+        # are listed) competes with the best fixed order on estimated bits
+        # plus its coefficient overhead (strict <)
+        windows = windows_of(config)
+        stages.count("lpc.window_evals", planes.numel() // B * len(windows))
+        search_start = stages.search_start(dev)
+        searched = windows != (TUKEY_HALF,)
+        if not searched:
+            l_order, res_lpc, l_q, l_shift, l_ok = lpc.analyze_lpc(
+                planes, lpc_order, config.lpc_precision
+            )
+            l_bits, l_method, l_po, l_params = rice_estimate_planes(
+                res_lpc, l_order, config.max_rice_order, max_param
+            )
+            l_cost = l_bits + 9 + l_order * config.lpc_precision
+        else:
+            found = lpc_window_search(
+                planes, lpc.windows_tensor(windows, B, dev), lpc_order, config.lpc_precision,
+                config.max_rice_order, max_param,
+            )
+            l_order, res_lpc, l_q, l_shift, l_ok = (
+                found.order, found.residuals, found.qcoeffs, found.shift, found.ok)
+            l_cost, l_method, l_po, l_params = (
+                found.cost, found.method, found.part_order, found.params)
+        stages.search_end(search_start)
         use_lpc = l_ok & (l_cost < rice_bits)
         rice_bits = torch.where(use_lpc, l_cost, rice_bits)
         method = torch.where(use_lpc, l_method, method)
@@ -538,6 +608,8 @@ def analyze_planes(
     kind = torch.where(all_eq, 0, torch.where(use_pred, torch.where(use_lpc, 3, 2), 1))
     if lpc_order:
         residuals = torch.where((kind == 3)[..., None], res_lpc, residuals)
+        if searched:
+            stages.tally_windows(windows, found.window, kind == 3)
     return PlaneAnalysis(
         kind=kind,
         est_bits=torch.where(

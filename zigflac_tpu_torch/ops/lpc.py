@@ -22,15 +22,24 @@ package on any device:
   int64 adds, products, arithmetic shifts and floor divisions (torch's
   int64 ``//`` floors and its ``>>`` is arithmetic, as XLA's);
 * the residual is one int64 tap loop with a dynamic int32 range check.
+
+Where a configuration lists other windows than the one Tukey(0.5)
+(``flac -8``'s ``tukey(0.5)``, ``partial_tukey(2)`` and
+``punchout_tukey(3)``; ``utils/apodization.py``), each window is built on
+the host in Q8 the same way, and the analysis runs every window over every
+plane (``analyze.lpc_window_search``); the JAX package has the Tukey(0.5)
+alone.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.apodization import PART_OVERLAP, Window
 
 MAX_LPC_ORDER = 32
 WINDOW_Q = 8  # window fixed-point fraction bits
@@ -61,12 +70,57 @@ def tukey_qw(n: int) -> np.ndarray:
     return np.round(tukey_window(n) * float(1 << WINDOW_Q)).astype(np.int64)
 
 
+def _tukey_span(w: np.ndarray, a: int, b: int, taper: int) -> None:
+    """libFLAC's taper on ``w[a:b]``: a raised cosine up over its first
+    ``taper`` samples (the i-th at 0.5 - 0.5 cos(pi i / taper), i from 1),
+    ones, and the mirror image down over its last ``taper``."""
+    w[a:b] = 1.0
+    if taper > 0:
+        i = np.arange(1, taper + 1)
+        ramp = 0.5 - 0.5 * np.cos(np.pi * i / taper)
+        w[a : a + taper] = ramp
+        w[b - taper : b] = ramp[::-1]
+
+
+def _part_window(win: Window, n: int) -> np.ndarray:
+    """libFLAC's ``FLAC__window_partial_tukey`` (the part kept, zero
+    elsewhere) and ``FLAC__window_punchout_tukey`` (the part zeroed, a
+    tapered span on each side), in float64, over the part's span
+    [start, end) = [m, m + 1 + u) / (parts + u) of the block, u = 1 / (1 -
+    overlap) - 1, each end truncated to a sample."""
+    u = 1.0 / (1.0 - PART_OVERLAP[win.kind]) - 1.0
+    start = int(win.part / (win.parts + u) * n)
+    end = int((win.part + 1 + u) / (win.parts + u) * n)
+    w = np.zeros(n)
+    if win.kind == "partial_tukey":
+        _tukey_span(w, start, end, int(win.param / 2.0 * (end - start)))
+    else:
+        _tukey_span(w, 0, start, int(win.param / 2.0 * start))
+        _tukey_span(w, end, n, int(win.param / 2.0 * (n - end)))
+    return w
+
+
+@lru_cache(maxsize=64)
+def window_qw(win: Window, n: int) -> np.ndarray:
+    """A window in Q8 fixed point, int64 in [0, 256], rounded half to even
+    from float64 as ``tukey_qw``."""
+    w = tukey_window(n, win.param) if win.kind == "tukey" else _part_window(win, n)
+    return np.round(w * float(1 << WINDOW_Q)).astype(np.int64)
+
+
 @lru_cache(maxsize=32)
 def _window(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tukey_qw(n)).to(device)
 
 
-def lag_sums(planes: torch.Tensor, order: int) -> torch.Tensor:
+@lru_cache(maxsize=32)
+def windows_tensor(wins: Tuple[Window, ...], n: int, device: torch.device) -> torch.Tensor:
+    """The windows' Q8 values stacked, int64 [W, n], on ``device``."""
+    return torch.from_numpy(np.stack([window_qw(w, n) for w in wins])).to(device)
+
+
+def lag_sums(planes: torch.Tensor, order: int,
+             window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact windowed autocorrelation: ``planes`` int [..., B] -> int64
     [..., order+1, 3], lag k's value being ``l0*2^48 + l1*2^24 + l2`` with
     l1, l2 in [0, 2^24).
@@ -76,9 +130,11 @@ def lag_sums(planes: torch.Tensor, order: int) -> torch.Tensor:
     product is at most 2^46 in magnitude for |x| <= 2^46 (a 33-bit side
     sample times the Q8 window is under 2^41). The hi*hi, hi*lo + lo*hi and
     lo*lo product sums then fit int64 for every block below 2^16 samples,
-    and the floor carries normalize the low two limbs."""
+    and the floor carries normalize the low two limbs. ``window`` (Q8
+    int64, broadcast against the planes) replaces the Q8 Tukey(0.5)."""
     B = planes.shape[-1]
-    x = planes.to(torch.int64) * _window(B, planes.device)
+    w = _window(B, planes.device) if window is None else window
+    x = planes.to(torch.int64) * w
     m24 = (1 << _LIMB) - 1
     hi = (x + (1 << (_LIMB - 1))) >> _LIMB
     lo = x - (hi << _LIMB)

@@ -18,6 +18,14 @@ none), and ``call_id`` numbers the entry-point call it belongs to. While a
 name, so it lands in the profiler's record beside the device operations.
 Spans are kept per process and assume one thread: the program opens them
 only on its calling thread.
+
+The LPC window search has a device interval of its own: while ``SEARCH``
+is a list, every LPC search on a CUDA device appends a pair of CUDA events
+around it (``lpc.search``: the lag sums to the chosen window's Rice
+estimate), apart from the stage marks, so the ``analysis`` stage stays one
+interval. While ``WINDOW_WINS`` is a dict, a search over several windows
+adds, on the device and without waiting for it, the planes whose subframe
+became LPC to the count of the window that won them.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ EVENTS: Optional[List[Tuple[str, "torch.cuda.Event"]]] = None
 # (name, call_id, parent_index, t0_ns, t1_ns); t1_ns is 0 while the span is open
 SPANS: Optional[List[Tuple[str, int, int, int, int]]] = None
 COUNTS: Optional[Dict[str, int]] = None
+SEARCH: Optional[List[Tuple["torch.cuda.Event", "torch.cuda.Event"]]] = None
+# window labels -> int64 [W] on the device: the LPC subframes each window won
+WINDOW_WINS: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None
 
 _open: List[int] = []  # indices in SPANS of the spans open now, innermost last
 _calls = 0  # call ids handed out
@@ -43,6 +54,36 @@ def mark(stage: str) -> None:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         EVENTS.append((stage, ev))
+
+
+def search_start(device: torch.device):
+    """The start event of an ``lpc.search`` interval on ``device``: None
+    while ``SEARCH`` is None or the device is not a card."""
+    if SEARCH is None or device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def search_end(start) -> None:
+    """Close the interval ``search_start`` opened (nothing for None)."""
+    if start is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        SEARCH.append((start, ev))
+
+
+def tally_windows(windows, won: torch.Tensor, lpc: torch.Tensor) -> None:
+    """Add each plane where ``lpc`` holds to ``WINDOW_WINS`` under the
+    index ``won`` of its window, keyed by the windows' labels."""
+    if WINDOW_WINS is None:
+        return
+    key = tuple(w.label for w in windows)
+    tally = WINDOW_WINS.get(key)
+    if tally is None:
+        tally = WINDOW_WINS[key] = torch.zeros(len(key), dtype=torch.int64, device=won.device)
+    tally.scatter_add_(0, won.reshape(-1), lpc.reshape(-1).to(torch.int64))
 
 
 def batch_ms(events: List[Tuple[str, "torch.cuda.Event"]]) -> List[Dict[str, float]]:
