@@ -742,6 +742,23 @@ def test_card_fed_encode_spans_and_counts(rng, depth, fields):
     assert parts == pytest.approx(t["encode.call"][1], rel=1e-9)
 
 
+@pytest.mark.parametrize("depth", [16, 24])
+def test_card_fed_streaminfo_md5_is_the_pcm_md5(rng, depth):
+    """On the card-fed route the worker's STREAMINFO MD5 is the MD5 of the
+    WAV's PCM bytes, and the stream is the CPU route's, byte for byte."""
+    import hashlib
+
+    from zigflac_tpu_torch.wav import WavReader
+
+    wav = _wav(rng, 5 * 4096 + 777, 2, depth)
+    assert pipeline.DevicePipeline(EncoderConfig(), depth, "cuda:0").card_fed
+    unpack.reset_counts()
+    got = zigflac_tpu_torch.encode_wav_bytes(wav, device="cuda:0")
+    assert unpack.KERNEL_LAUNCHES > 0
+    assert got[26:42] == hashlib.md5(WavReader.from_bytes(wav).raw_pcm_bytes()).digest()
+    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu")
+
+
 def test_card_fed_staging_and_unpack_do_not_synchronize(rng):
     """The card-fed dispatch's own steps, the pinned copy and the unpack,
     never wait for the card once the pinned pool holds a block of the

@@ -27,7 +27,6 @@ ENCODE = {
     "encode.call": None,
     "wav.parse": "encode.call",
     "wav.planar_samples": "encode.call",
-    "wav.raw_copy": "encode.call",
     "session.setup": "encode.call",
     "pipeline.dispatch_batch": "encode.call",
     "pipeline.dispatch_tail": "encode.call",

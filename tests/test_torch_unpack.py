@@ -267,13 +267,15 @@ def card_fed(monkeypatch):
 
 
 def test_encode_wav_bytes_routes_by_the_pipeline(armed):
-    """The planar route on the CPU device: the host de-interleave and the
-    raw copy, and no row from the unpack."""
+    """The planar route on the CPU device: the host de-interleave, the MD5
+    of the WAV's own bytes with no raw copy for it, and no row from the
+    unpack."""
     wav = _wav(16, 2 * 4096 + 99, 5, 3000)
     assert not pipeline.DevicePipeline(EncoderConfig(), 16, "cpu").card_fed
     zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu")
     t = stages.totals()
-    assert t["wav.planar_samples"][0] == t["wav.raw_copy"][0] == 1
+    assert t["wav.planar_samples"][0] == t["session.md5"][0] == 1
+    assert "wav.raw_copy" not in t
     assert stages.COUNTS["pipeline.frames_unpacked"] == 0
 
 

@@ -17,9 +17,13 @@ of same-format files fused into shared device batches) and
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import os
+import threading
+import time
 from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import replace
 from typing import List, Optional
 
@@ -47,6 +51,52 @@ from .pipeline import TAIL_DEVICE_MIN, DevicePipeline
 def _check_seek_interval(seek_interval: Optional[int]) -> None:
     if seek_interval is not None and seek_interval <= 0:
         raise ValueError(f"seek_interval must be positive, got {seek_interval}")
+
+
+# The STREAMINFO MD5's worker: one thread a process, started by the first
+# encode that needs it, so each call's hash runs beside its dispatch and
+# collect and the call waits for the digest only where STREAMINFO takes it.
+_md5_pool: Optional[ThreadPoolExecutor] = None
+_md5_pool_lock = threading.Lock()
+
+
+def _forget_md5_pool() -> None:
+    """A forked child has no worker thread: it starts its own."""
+    global _md5_pool, _md5_pool_lock
+    _md5_pool, _md5_pool_lock = None, threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_md5_pool)
+
+
+def _md5_job(raw, samples: Optional[np.ndarray], bit_depth: int):
+    """On the worker: the MD5 of ``raw`` (of ``samples`` serialized at
+    ``bit_depth`` where ``raw`` is None) and the nanoseconds the job took.
+    It opens no span and counts nothing: the tracer assumes one thread."""
+    t0 = time.perf_counter_ns()
+    if raw is None:
+        raw = reconstruct_raw_bytes(samples, bit_depth)
+    digest = hashlib.md5(raw).digest()  # releases the GIL while it hashes
+    return digest, time.perf_counter_ns() - t0
+
+
+def _start_md5(raw, samples: Optional[np.ndarray] = None, bit_depth: int = 0) -> Future:
+    """Queue ``_md5_job`` on the worker; ``_md5_digest`` waits for it."""
+    global _md5_pool
+    with _md5_pool_lock:
+        if _md5_pool is None:
+            _md5_pool = ThreadPoolExecutor(1, thread_name_prefix="zigflac-md5")
+        return _md5_pool.submit(_md5_job, raw, samples, bit_depth)
+
+
+def _md5_digest(job: Future) -> bytes:
+    """The digest of ``job``, waited for on the calling thread: the
+    ``session.md5`` span is that wait, and ``session.md5_hash_ns`` counts
+    the job's own time. The job's exception, if it raised, is raised here."""
+    with stages.span("session.md5"):
+        digest, hash_ns = job.result()
+    stages.count("session.md5_hash_ns", hash_ns)
+    return digest
 
 
 def _tail_on_device(rem: int) -> bool:
@@ -103,11 +153,13 @@ class Encoder:
         seek_interval: Optional[int] = None,
         padding: int = 0,
         extra_metadata: Optional[List[bytes]] = None,
+        md5_job: Optional[Future] = None,
     ) -> bytes:
         """Planar ``[channels, n] int32`` -> complete FLAC stream.
 
         ``raw_pcm_bytes`` is the little-endian interleaved byte stream the
         STREAMINFO MD5 covers; when None it is reconstructed from samples.
+        ``md5_job``, internal, is that MD5 already started (``_start_md5``).
         ``seek_interval`` (samples) adds a SEEKTABLE block with a point at
         most every that many samples; ``padding`` adds a PADDING block of
         that many zero bytes; ``extra_metadata`` takes pre-built blocks
@@ -115,8 +167,8 @@ class Encoder:
         """
         _check_seek_interval(seek_interval)
         with stages.entry("encode.call"):
-            stream, sizes, md5 = self._encode_samples(samples, info, raw_pcm_bytes)
-            return self._finish(stream, sizes, md5, info, tags, seek_interval, padding,
+            stream, sizes, md5_job = self._encode_samples(samples, info, raw_pcm_bytes, md5_job)
+            return self._finish(stream, sizes, md5_job, info, tags, seek_interval, padding,
                                 extra_metadata)
 
     def encode_pcm(
@@ -128,30 +180,29 @@ class Encoder:
         seek_interval: Optional[int] = None,
         padding: int = 0,
         extra_metadata: Optional[List[bytes]] = None,
+        md5_job: Optional[Future] = None,
     ) -> bytes:
         """``encode_stream`` of a WAV's interleaved little-endian PCM bytes
         (``WavReader.raw_pcm_bytes()``, ``bytes_per_sample`` bytes a
         sample) in place of planar samples: the bytes cross to the device
         once and are unpacked there (``DevicePipeline.encode_pcm_stream``),
-        and the MD5 hashes them where they are. ``encode_wav_bytes`` takes
-        this route where the pipeline is ``card_fed``."""
+        and the MD5 worker hashes them where they are (``md5_job``, internal:
+        the job ``encode_wav_bytes`` started at the parse; started here where
+        None). ``encode_wav_bytes`` takes this route where the pipeline is
+        ``card_fed``."""
         _check_seek_interval(seek_interval)
         with stages.entry("encode.call"):
-            md5_box = {}
-
-            def _md5_work():
-                with stages.span("session.md5"):
-                    md5_box["md5"] = native.md5(pcm)
-
-            stream, sizes = self.pipeline.encode_pcm_stream(pcm, bytes_per_sample, info,
-                                                            overlap_work=_md5_work)
-            return self._finish(stream, sizes, md5_box["md5"], info, tags, seek_interval,
+            if md5_job is None:
+                md5_job = _start_md5(pcm)
+            stream, sizes = self.pipeline.encode_pcm_stream(pcm, bytes_per_sample, info)
+            return self._finish(stream, sizes, md5_job, info, tags, seek_interval,
                                 padding, extra_metadata)
 
-    def _finish(self, stream: bytes, sizes: np.ndarray, md5: bytes, info: StreamInfo,
+    def _finish(self, stream: bytes, sizes: np.ndarray, md5_job: Future, info: StreamInfo,
                 tags, seek_interval, padding, extra_metadata) -> bytes:
-        """The metadata blocks, with the finalized STREAMINFO, before the
-        frame stream."""
+        """The metadata blocks, with the finalized STREAMINFO (its MD5
+        waited for first), before the frame stream."""
+        md5 = _md5_digest(md5_job)
         with stages.span("session.finish"):
             info.update_frame_sizes(sizes)
             info.md5 = md5
@@ -170,28 +221,22 @@ class Encoder:
             return b"".join(blocks) + stream
 
     def _encode_samples(self, samples: np.ndarray, info: StreamInfo,
-                        raw_pcm_bytes: Optional[bytes]):
-        """Every frame of planar samples: (frame-stream bytes, sizes, MD5).
-        The MD5 runs while the device encodes the dispatched batches."""
+                        raw_pcm_bytes: Optional[bytes], md5_job: Optional[Future] = None):
+        """Every frame of planar samples: (frame-stream bytes, sizes, the
+        MD5's job). The job, started here unless the caller started it,
+        hashes on the worker while this thread dispatches and collects."""
+        if md5_job is None:
+            md5_job = _start_md5(raw_pcm_bytes, samples, self.bit_depth)
         c, n = samples.shape
         block = self.config.block_size
         n_full = n // block
         rem = n - n_full * block
-        md5_box = {}
-
-        def _md5_work():
-            with stages.span("session.md5"):
-                raw = (raw_pcm_bytes if raw_pcm_bytes is not None
-                       else reconstruct_raw_bytes(samples, self.bit_depth))
-                md5_box["md5"] = native.md5(raw)
-
         batch = samples[:, : n_full * block].reshape(c, n_full, block).transpose(1, 0, 2)
         stream, sizes = self.pipeline.encode_frames_stream(
             batch, 0, info,
             tail=samples[:, n_full * block :] if _tail_on_device(rem) else None,
-            overlap_work=_md5_work,
         )
-        return stream, sizes, md5_box["md5"]
+        return stream, sizes, md5_job
 
 
 def encode_to_file(
@@ -216,10 +261,10 @@ def encode_to_file(
 
         out_file.write(b"\x00" * HEADER_SIZE)  # skipHeader
         out_file.write(vorbis_comment_block(is_last=True))
-        stream, sizes, md5 = enc._encode_samples(samples, info, raw_pcm_bytes)
+        stream, sizes, md5_job = enc._encode_samples(samples, info, raw_pcm_bytes)
         out_file.write(stream)
         info.update_frame_sizes(sizes)
-        info.md5 = md5
+        info.md5 = _md5_digest(md5_job)
 
         out_file.flush()
         out_file.seek(0)
@@ -540,13 +585,15 @@ def encode_wav_bytes(
 ) -> bytes:
     """The wav2flac path: WAV bytes in, FLAC bytes out
     (src/main.zig + src/wav2flac.zig), encoded on ``device`` (the card
-    unless the caller asks for the CPU; without a card, cuda raises). On a
-    single CUDA device the WAV's PCM bytes go to the card as they are
-    (``Encoder.encode_pcm``); on a mesh or the CPU the host de-interleaves
-    them first."""
+    unless the caller asks for the CPU; without a card, cuda raises). The
+    STREAMINFO MD5 of the WAV's PCM bytes starts on the worker as soon as
+    they are parsed. On a single CUDA device those bytes go to the card as
+    they are (``Encoder.encode_pcm``); on a mesh or the CPU the host
+    de-interleaves them first."""
     with stages.entry("encode.call"):
         with stages.span("wav.parse"):
             wav = WavReader.from_bytes(wav_bytes)
+        md5_job = _start_md5(wav.raw_pcm_bytes())
         with stages.span("session.setup"):
             cfg = config or EncoderConfig.default(wav.channels)
             info = wav.flac_streaminfo(cfg.block_size)
@@ -555,14 +602,13 @@ def encode_wav_bytes(
             return enc.encode_pcm(
                 wav.raw_pcm_bytes(), wav.bytes_per_sample, info, tags=tags,
                 seek_interval=seek_interval, padding=padding, extra_metadata=extra_metadata,
+                md5_job=md5_job,
             )
         with stages.span("wav.planar_samples"):
             samples = wav.planar_samples()
-        with stages.span("wav.raw_copy"):
-            raw = bytes(wav.raw_pcm_bytes())
         return enc.encode_stream(
-            samples, info, raw_pcm_bytes=raw, tags=tags, seek_interval=seek_interval,
-            padding=padding, extra_metadata=extra_metadata,
+            samples, info, tags=tags, seek_interval=seek_interval, padding=padding,
+            extra_metadata=extra_metadata, md5_job=md5_job,
         )
 
 

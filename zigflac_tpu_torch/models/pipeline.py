@@ -286,17 +286,14 @@ class DevicePipeline:
         info: StreamInfo,
         frame_numbers: np.ndarray | None = None,
         tail: np.ndarray | None = None,
-        overlap_work=None,
     ) -> Tuple[bytes, np.ndarray]:
         """[F, C, B] PCM int32 full frames -> (frame-stream bytes, sizes).
 
         ``frame_numbers`` overrides the default consecutive numbering.
         ``tail`` is an optional ragged final frame ``[C, rem]`` (rem < B),
         encoded at its exact block size and numbered after the full frames.
-        ``overlap_work`` is an optional host callback run after every batch
-        has been dispatched and before collection blocks, so serial host
-        work (the raw-PCM MD5) overlaps the device's. A tail whose partition
-        order the analysis cannot hold is refused before any batch runs.
+        A tail whose partition order the analysis cannot hold is refused
+        before any batch runs.
         """
         f = frames.shape[0]
         bs = self.batch_size
@@ -311,10 +308,10 @@ class DevicePipeline:
             pending.append(self.dispatch_batch(chunk, fns, info))
         if tail is not None:
             pending.append(self.dispatch_tail(tail, first_frame_number + f, info))
-        return self._collect_all(pending, info, overlap_work)
+        return self._collect_all(pending, info)
 
-    def encode_pcm_stream(self, pcm: memoryview, bytes_per_sample: int, info: StreamInfo,
-                          overlap_work=None) -> Tuple[bytes, np.ndarray]:
+    def encode_pcm_stream(self, pcm: memoryview, bytes_per_sample: int,
+                          info: StreamInfo) -> Tuple[bytes, np.ndarray]:
         """``encode_frames_stream`` of every frame of a WAV's interleaved
         little-endian PCM bytes ``pcm`` (``info.interchannel_samples``
         sample frames of ``info.channels`` samples, ``bytes_per_sample``
@@ -335,13 +332,11 @@ class DevicePipeline:
         if rem >= TAIL_DEVICE_MIN:
             pending.append(self.dispatch_pcm(pcm[n_full * step :], bytes_per_sample, rem,
                                              np.array([n_full], np.int64), info))
-        return self._collect_all(pending, info, overlap_work)
+        return self._collect_all(pending, info)
 
-    def _collect_all(self, pending: list, info, overlap_work) -> Tuple[bytes, np.ndarray]:
-        """Run ``overlap_work``, then collect every dispatched batch in order
-        and join their bytes and sizes."""
-        if overlap_work is not None:
-            overlap_work()
+    def _collect_all(self, pending: list, info) -> Tuple[bytes, np.ndarray]:
+        """Collect every dispatched batch in order and join their bytes and
+        sizes."""
         chunks: List[bytes] = []
         sizes: List[np.ndarray] = []
         for p in pending:
