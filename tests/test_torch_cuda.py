@@ -713,26 +713,26 @@ def test_unpack_kernel_refuses_without_launching(rng):
 @pytest.mark.parametrize("depth,fields", [(16, dict()), (24, dict(prediction="lpc"))])
 def test_card_fed_encode_spans_and_counts(rng, depth, fields):
     """encode_wav_bytes on the card takes the card-fed route: the CPU
-    route's bytes, one unpack a dispatch, every encoded row from the
+    device's bytes, one unpack a dispatch, every encoded row from the
     unpack, no ``wav.planar_samples`` or ``wav.raw_copy`` span, and the
     layers' spans add up to the call."""
     from zigflac_tpu_torch.utils import stages
 
     wav = _wav(rng, 3 * 4096 + 1234, 2, depth)
     cfg = EncoderConfig(**fields)
-    assert pipeline.DevicePipeline(cfg, depth, "cuda:0").card_fed
     unpack.reset_counts()
     stages.SPANS, stages.COUNTS = [], {}
     try:
         got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda:0")
         t, c = stages.totals(), dict(stages.COUNTS)
+        launches, plain = unpack.KERNEL_LAUNCHES, unpack.PLAIN_CALLS
     finally:
         stages.SPANS = stages.COUNTS = None
+    # the CPU device takes the same route, through the plain unpack
     assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
     assert "wav.planar_samples" not in t and "wav.raw_copy" not in t
-    assert unpack.KERNEL_LAUNCHES == t["pipeline.dispatch_batch"][0] + t[
-        "pipeline.dispatch_tail"][0] == 2
-    assert unpack.PLAIN_CALLS == 0
+    assert launches == t["pipeline.dispatch_batch"][0] + t["pipeline.dispatch_tail"][0] == 2
+    assert plain == 0
     assert c["pipeline.frames_unpacked"] == c["pipeline.frames_encoded"] >= 5
     parts = sum(t[n][1] for n in ("wav.parse", "session.setup", "session.md5", "session.finish",
                                   "pipeline.h2d", "pipeline.wait", "pipeline.d2h",
@@ -744,17 +744,24 @@ def test_card_fed_encode_spans_and_counts(rng, depth, fields):
 
 @pytest.mark.parametrize("depth", [16, 24])
 def test_card_fed_streaminfo_md5_is_the_pcm_md5(rng, depth):
-    """On the card-fed route the worker's STREAMINFO MD5 is the MD5 of the
-    WAV's PCM bytes, and the stream is the CPU route's, byte for byte."""
+    """On the card-fed route (every encoded row from the unpack kernel) the
+    worker's STREAMINFO MD5 is the MD5 of the WAV's PCM bytes, and the
+    stream is the CPU device's, byte for byte."""
     import hashlib
 
+    from zigflac_tpu_torch.utils import stages
     from zigflac_tpu_torch.wav import WavReader
 
     wav = _wav(rng, 5 * 4096 + 777, 2, depth)
-    assert pipeline.DevicePipeline(EncoderConfig(), depth, "cuda:0").card_fed
     unpack.reset_counts()
-    got = zigflac_tpu_torch.encode_wav_bytes(wav, device="cuda:0")
-    assert unpack.KERNEL_LAUNCHES > 0
+    stages.SPANS, stages.COUNTS = [], {}
+    try:
+        got = zigflac_tpu_torch.encode_wav_bytes(wav, device="cuda:0")
+        c = dict(stages.COUNTS)
+    finally:
+        stages.SPANS = stages.COUNTS = None
+    assert unpack.KERNEL_LAUNCHES > 0 and unpack.PLAIN_CALLS == 0
+    assert c["pipeline.frames_unpacked"] == c["pipeline.frames_encoded"] > 0
     assert got[26:42] == hashlib.md5(WavReader.from_bytes(wav).raw_pcm_bytes()).digest()
     assert got == zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu")
 

@@ -172,7 +172,9 @@ def test_ogg_output_equals_jax(tmp_path, rng, entry):
     refs = [str(tmp_path / f"{i}.jax.oga") for i in range(2)]
     if entry == "encode_file":
         ins, outs, refs = ins[:1], outs[:1], refs[:1]
-        kw = dict(tags=[("TITLE", "ogg")], seek_interval=512, padding=32)
+        extra = [picture_block(PNG, "image/png", is_last=False),
+                 parse_cue_sheet(CUE, 44100, 256 * 5 + 37)]
+        kw = dict(tags=[("TITLE", "ogg")], seek_interval=512, padding=32, extra_metadata=extra)
         zt.encode_file(ins[0], outs[0], config=cfg, device="cpu", ogg=True, **kw)
         jax_encoder.encode_file(ins[0], refs[0], config=jcfg, backend="device", ogg=True, **kw)
     else:

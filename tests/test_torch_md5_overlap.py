@@ -3,10 +3,10 @@
 ``_md5_digest``), on the CPU.
 
 Every route that ends in ``Encoder._finish`` or ``encode_to_file`` (the
-planar route of ``encode_wav_bytes``, ``Encoder.encode_stream`` with the
-samples serialized on the worker, and the card-fed route that
-``encode_wav_bytes`` takes on one CUDA device) writes the MD5 of the WAV's
-PCM bytes and the golden oracle's stream. An error in the job is raised by
+planar route, ``Encoder.encode_stream`` of ``planar_samples()`` with the
+WAV's bytes or with the samples serialized on the worker, and the PCM
+route, ``encode_wav_bytes`` through ``Encoder.encode_pcm``) writes the MD5
+of the WAV's PCM bytes and the golden oracle's stream. An error in the job is raised by
 the call; an error in the dispatch is raised without waiting for the job,
 and the next call gets its own digest. Spans and counters are touched only
 on the calling thread: one ``session.md5`` span, the wait, under the call,
@@ -34,7 +34,7 @@ from zigflac_tpu_torch.wav import WavReader, write_wav
 
 BLOCK = 256
 WAIT_S = 60  # no call here takes a second; a hang fails instead of stalling the run
-ROUTES = ["planar", "card_fed"]
+ROUTES = ["planar", "pcm"]
 
 
 def _wav(seed, n=2 * BLOCK + 37, channels=2, depth=16):
@@ -78,36 +78,40 @@ def _within(fn, *args, **kwargs):
     return box["out"]
 
 
-@pytest.fixture
-def route(request, monkeypatch):
-    """``encode_wav_bytes`` on the CPU device takes the planar route, or,
-    with ``card_fed`` set as on one CUDA device, ``Encoder.encode_pcm``."""
-    if request.param == "card_fed":
-        monkeypatch.setattr(pipeline.DevicePipeline, "card_fed",
-                            property(lambda self: self._mesh is None))
-    return request.param
-
-
 def _encode(wav, channels=2):
+    """The PCM route: ``encode_wav_bytes``, through ``Encoder.encode_pcm``."""
     return zigflac_tpu_torch.encode_wav_bytes(wav, config=_config(channels), device="cpu")
+
+
+def _encode_planar(wav, channels=2):
+    """The planar route: ``Encoder.encode_stream`` of ``planar_samples()``,
+    the job started on the WAV's bytes."""
+    reader = WavReader.from_bytes(wav)
+    enc = Encoder(_config(channels), reader.bit_depth, "cpu")
+    return enc.encode_stream(reader.planar_samples(), reader.flac_streaminfo(BLOCK),
+                             raw_pcm_bytes=reader.raw_pcm_bytes())
+
+
+@pytest.fixture
+def route(request):
+    """The encode of one route: ``_encode_planar`` or ``_encode``."""
+    return {"planar": _encode_planar, "pcm": _encode}[request.param]
 
 
 @pytest.mark.parametrize("channels", [1, 2, 6])
 @pytest.mark.parametrize("depth", [8, 12, 16, 20, 24])
-def test_every_route_writes_the_pcm_md5_and_the_golden_stream(monkeypatch, depth, channels):
+def test_every_route_writes_the_pcm_md5_and_the_golden_stream(depth, channels):
     wav = _wav(depth * 10 + channels, channels=channels, depth=depth)
     fields = dict(block_size=BLOCK, channels="stereo_auto" if channels == 2 else channels)
     want = zigflac_tpu.encode_wav_bytes(wav, config=JaxConfig(**fields), backend="golden")
     assert _streaminfo_md5(want) == _pcm_md5(wav)
 
-    assert _encode(wav, channels) == want  # planar route, the job started at the parse
+    assert _encode(wav, channels) == want  # PCM route, the job started at the parse
+    assert _encode_planar(wav, channels) == want
     reader = WavReader.from_bytes(wav)
     enc = Encoder(_config(channels), depth, "cpu")
     # no raw bytes: the job serializes the samples on the worker
     assert enc.encode_stream(reader.planar_samples(), reader.flac_streaminfo(BLOCK)) == want
-    monkeypatch.setattr(pipeline.DevicePipeline, "card_fed",
-                        property(lambda self: self._mesh is None))
-    assert _encode(wav, channels) == want  # card-fed route
 
 
 @pytest.mark.parametrize("route", ROUTES, indirect=True)
@@ -120,8 +124,8 @@ def test_a_hasher_that_raises_fails_the_call_and_the_next_call_succeeds(monkeypa
     with monkeypatch.context() as m:
         m.setattr(encoder, "_md5_job", boom)
         with pytest.raises(RuntimeError, match="hasher failed"):
-            _within(_encode, wav)
-    flac = _within(_encode, wav)
+            _within(route, wav)
+    flac = _within(route, wav)
     assert _streaminfo_md5(flac) == _pcm_md5(wav)
 
 
@@ -150,14 +154,14 @@ def test_a_dispatch_that_raises_fails_the_call_without_waiting_for_the_hash(monk
     with monkeypatch.context() as m:
         m.setattr(encoder, "_md5_job", held_job)
         m.setattr(encoder, "_start_md5", start)
-        name = "dispatch_pcm" if route == "card_fed" else "dispatch_batch"
+        name = "dispatch_pcm" if route is _encode else "dispatch_batch"
         m.setattr(pipeline.DevicePipeline, name, boom)
         with pytest.raises(RuntimeError, match="dispatch failed"):
-            _within(_encode, failed_wav)
+            _within(route, failed_wav)
         assert len(jobs) == 1 and not jobs[0].done()
         gate.set()
     assert _within(jobs[0].result)[0] == _pcm_md5(failed_wav)
-    flac = _within(_encode, next_wav)
+    flac = _within(route, next_wav)
     assert _streaminfo_md5(flac) == _pcm_md5(next_wav) != _pcm_md5(failed_wav)
 
 
@@ -188,7 +192,7 @@ def test_one_md5_span_a_call_all_on_the_calling_thread(monkeypatch, route):
     monkeypatch.setattr(encoder, "_md5_job", job)
     stages.SPANS, stages.COUNTS = [], {}
     try:
-        flac = _encode(wav)
+        flac = route(wav)
         spans, counts, still_open = list(stages.SPANS), dict(stages.COUNTS), list(stages._open)
     finally:
         stages.SPANS = stages.COUNTS = None
@@ -207,11 +211,11 @@ def test_one_md5_span_a_call_all_on_the_calling_thread(monkeypatch, route):
 @pytest.mark.parametrize("route", ROUTES, indirect=True)
 def test_back_to_back_calls_never_mix_digests(route):
     wavs = [_wav(5), _wav(6, n=3 * BLOCK + 11)]
-    want = [_encode(w) for w in wavs]
+    want = [route(w) for w in wavs]
     assert _streaminfo_md5(want[0]) != _streaminfo_md5(want[1])
     for k in range(20):
         i = k % 2
-        flac = _within(_encode, wavs[i])
+        flac = _within(route, wavs[i])
         assert flac == want[i] and _streaminfo_md5(flac) == _pcm_md5(wavs[i]), k
 
 

@@ -63,12 +63,13 @@ def shard_by_default(monkeypatch):
 
 @pytest.fixture
 def overflow_calls(monkeypatch):
-    """The frame rows of every capacity-ladder re-encode, as (rows, real)."""
+    """The frame rows of every capacity-ladder re-encode, as (rows, real):
+    a host chunk's, or the frames a single device unpacked at the dispatch."""
     calls = []
     real = pipeline.DevicePipeline._encode_overflow
 
     def spy(self, rec):
-        calls.append((rec["chunk"].shape[0], rec["nreal"]))
+        calls.append((rec.get("chunk", rec.get("frames")).shape[0], rec["nreal"]))
         return real(self, rec)
 
     monkeypatch.setattr(pipeline.DevicePipeline, "_encode_overflow", spy)

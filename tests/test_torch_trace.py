@@ -6,6 +6,7 @@ add up, the pipeline's frame and byte counters, and the same spans in a
 
 import gc
 import io
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 import zigflac_tpu_torch as zt
 from conftest import make_signal
 from zigflac_tpu_torch import EncoderConfig
-from zigflac_tpu_torch.models import pipeline
+from zigflac_tpu_torch.models import encoder, pipeline
 from zigflac_tpu_torch.utils import stages
 from zigflac_tpu_torch.wav import write_wav
 
@@ -22,11 +23,12 @@ BLOCK = 4096
 TAIL = 100
 
 # span -> its parent's name, on the paths of one encode_wav_bytes and one
-# decode_flac call on the CPU (a 16-bit stereo WAV of 3 full blocks and a tail)
+# decode_flac call on the CPU (a 16-bit stereo WAV of 3 full blocks and a
+# tail); the encode takes the PCM route, so its pipeline.h2d spans are the
+# staging copies of the WAV's bytes and the frame numbers under each dispatch
 ENCODE = {
     "encode.call": None,
     "wav.parse": "encode.call",
-    "wav.planar_samples": "encode.call",
     "session.setup": "encode.call",
     "pipeline.dispatch_batch": "encode.call",
     "pipeline.dispatch_tail": "encode.call",
@@ -152,12 +154,13 @@ def test_nested_entry_points_count_once(armed, flac, tmp_path, wav):
 
 def test_frame_and_byte_counters(armed, wav, flac):
     """3 full blocks and a tail: the bucket of 4 rows and the tail's 1, 4
-    of them frames of the input; h2d carries the int16 rows and the frame
-    numbers, the decoder's d2h its int32 samples."""
+    of them frames of the input; h2d carries the WAV's PCM bytes of the
+    real rows (the unpack pads to the bucket on the device) and the frame
+    numbers of every row, the decoder's d2h its int32 samples."""
     _encode(wav)
     c = armed.COUNTS
     assert c["pipeline.frames_real"] == 4 and c["pipeline.frames_encoded"] == 5
-    assert c["pipeline.h2d_bytes"] == (4 * 2 * BLOCK * 2 + 4 * 8) + (2 * TAIL * 2 + 8)
+    assert c["pipeline.h2d_bytes"] == (3 * 2 * BLOCK * 2 + 4 * 8) + (2 * TAIL * 2 + 8)
     assert c["pipeline.d2h_bytes"] > 0
     zt.decode_flac(flac, device="cpu")
     assert c["decoder.d2h_bytes"] == (3 * 2 * BLOCK + 2 * TAIL) * 4
@@ -170,7 +173,8 @@ def test_frame_and_byte_counters(armed, wav, flac):
 def test_overflow_re_encodes_count_their_rows(armed, wav, flac, monkeypatch):
     """A tier-0 budget the batch of full frames does not fit (the tail's
     fixed slack holds it): the batch encodes again at the next tier, inside
-    its collect, and its rows count twice; the bytes are unchanged."""
+    its collect, from the frames its dispatch unpacked, and its rows count
+    twice; the bytes are unchanged."""
     monkeypatch.setattr(pipeline, "CAPACITY_LADDER", ((0.05, 0.1), (1.15, None)))
     assert _encode(wav) == flac
     c = armed.COUNTS
@@ -178,7 +182,7 @@ def test_overflow_re_encodes_count_their_rows(armed, wav, flac, monkeypatch):
     spans = armed.SPANS
     inner_h2d = [s for s in spans if s[0] == "pipeline.h2d"
                  and spans[s[2]][0] == "pipeline.collect_batch"]
-    assert len(inner_h2d) == 2  # the frames and their numbers
+    assert len(inner_h2d) == 1  # the frame numbers alone
 
 
 def test_mesh_shards_count_their_rows(armed, wav):
@@ -207,14 +211,24 @@ def test_mesh_shards_count_their_rows(armed, wav):
     assert h2d_parents == {"pipeline.dispatch_batch", "pipeline.dispatch_tail"}
 
 
+def _md5_here(raw, samples=None, bit_depth=0) -> Future:
+    """``encoder._start_md5`` with the job run on the calling thread."""
+    job = Future()
+    job.set_result(encoder._md5_job(raw, samples, bit_depth))
+    return job
+
+
 def _profiled_spans(wav, flac):
     """(the profiler's {name: durations in order}, the tracer's) of one
     encode and one decode under a CPU profiler, the garbage collector
-    waiting."""
+    waiting and the MD5 job run on the calling thread, so that no other
+    thread takes the interpreter between a span's two clock reads."""
     stages.SPANS = []
     gc.disable()
     try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with pytest.MonkeyPatch.context() as m, torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            m.setattr(encoder, "_start_md5", _md5_here)
             _encode(wav)
             zt.decode_flac(flac, device="cpu")
     finally:

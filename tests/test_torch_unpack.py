@@ -1,5 +1,5 @@
 """The PCM unpack (zigflac_tpu_torch/csrc/unpack_steps.cuh, ops/unpack.py)
-and the card-fed encode route that takes it, on the CPU.
+and the PCM encode route that takes it, on the CPU.
 
 The kernel's arithmetic is built for the host with g++ behind a loop that
 runs csrc/unpack.cu's threads (one a sample frame) one after another; it
@@ -8,8 +8,10 @@ de-interleave, ``native.deinterleave``) at containers of 1-4 bytes, depths
 4-32 (the 8-bit read quirk with 0x80 bytes, left-justified 12- and 20-bit
 samples, 32 bits), 1-8 channels, bucket rows past ``nreal`` and ragged
 tails. Then ``Encoder.encode_pcm`` on the CPU device (through the plain
-version) against the pinned corpus streams and the planar route, capacity
-re-encodes included, and the spans and counters of the route.
+version; ``encode_wav_bytes`` takes it on every device) against the pinned
+corpus streams and the planar route, capacity re-encodes included, the
+spans and counters of the route, and, on a mesh, the host de-interleave
+in its place.
 
 Tolerance: exact equality of samples and bytes."""
 
@@ -194,22 +196,32 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(args, exc):
         unpack.unpack_pcm(*args)
 
 
-# -- the card-fed route on the CPU device -----------------------------------------------
+# -- the PCM route on the CPU device ----------------------------------------------------
 
 
-def _route(wav_bytes, cfg):
-    """``Encoder.encode_pcm`` of a WAV on the CPU device: the card-fed
-    route, through the plain unpack."""
+def _route(wav_bytes, cfg, pipe=None):
+    """``Encoder.encode_pcm`` of a WAV on the CPU device (or through
+    ``pipe``): the PCM route, through the plain unpack."""
     wav = WavReader.from_bytes(wav_bytes)
     enc = Encoder(cfg, wav.bit_depth, "cpu")
+    if pipe is not None:
+        enc.pipeline = pipe
     return enc.encode_pcm(wav.raw_pcm_bytes(), wav.bytes_per_sample,
                           wav.flac_streaminfo(cfg.block_size))
+
+
+def _planar(wav_bytes, cfg, **kwargs):
+    """``Encoder.encode_stream`` of the host de-interleave's samples on the
+    CPU device: the planar route."""
+    wav = WavReader.from_bytes(wav_bytes)
+    enc = Encoder(cfg, wav.bit_depth, "cpu")
+    return enc.encode_stream(wav.planar_samples(), wav.flac_streaminfo(cfg.block_size), **kwargs)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])
 def test_card_fed_route_gives_the_corpus_streams(name):
     """Every pinned corpus stream (the JAX package's bytes, 8-32 bits, 1-8
-    channels, fixed and LPC) through the card-fed route."""
+    channels, fixed and LPC) through the PCM route, which is the card's."""
     case = next(c for c in CASES if c["name"] == name)
     unpack.reset_counts()
     flac = _route(_wav_bytes(case), EncoderConfig(**asdict(_case_config(case))))
@@ -245,7 +257,7 @@ def test_card_fed_route_re_encodes_from_its_frames(armed, monkeypatch, depth, la
     wav = _wav(depth, 3 * 1024 + 321, depth)
     cfg = EncoderConfig(block_size=1024)
     monkeypatch.setattr(pipeline, "CAPACITY_LADDER", ladder)
-    want = zigflac_tpu_torch.encode_wav_bytes(wav, cfg, device="cpu")
+    want = _planar(wav, cfg)
     stages.SPANS, stages.COUNTS = [], {}
     unpack.reset_counts()
     assert _route(wav, cfg) == want
@@ -258,42 +270,58 @@ def test_card_fed_route_re_encodes_from_its_frames(armed, monkeypatch, depth, la
                                        + 8 * c["pipeline.frames_encoded"])
 
 
-@pytest.fixture
-def card_fed(monkeypatch):
-    """``encode_wav_bytes`` on the CPU device takes the card-fed route, as
-    it does on a single CUDA device."""
-    monkeypatch.setattr(pipeline.DevicePipeline, "card_fed",
-                        property(lambda self: self._mesh is None))
-
-
 def test_encode_wav_bytes_routes_by_the_pipeline(armed):
-    """The planar route on the CPU device: the host de-interleave, the MD5
-    of the WAV's own bytes with no raw copy for it, and no row from the
-    unpack."""
+    """On the CPU device, as on the card, ``encode_wav_bytes`` hands the
+    pipeline the WAV's own bytes: the plain unpack makes every encoded row,
+    there is no host de-interleave, and the MD5 is of the WAV's own bytes
+    with no raw copy for it."""
     wav = _wav(16, 2 * 4096 + 99, 5, 3000)
-    assert not pipeline.DevicePipeline(EncoderConfig(), 16, "cpu").card_fed
+    unpack.reset_counts()
     zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu")
     t = stages.totals()
-    assert t["wav.planar_samples"][0] == t["session.md5"][0] == 1
-    assert "wav.raw_copy" not in t
-    assert stages.COUNTS["pipeline.frames_unpacked"] == 0
+    assert t["session.md5"][0] == 1
+    assert "wav.planar_samples" not in t and "wav.raw_copy" not in t
+    c = stages.COUNTS
+    assert c["pipeline.frames_unpacked"] == c["pipeline.frames_encoded"] > 0
+    assert unpack.PLAIN_CALLS == t["pipeline.dispatch_batch"][0] + t[
+        "pipeline.dispatch_tail"][0] == 2
+
+
+def test_encode_pcm_on_a_mesh_de_interleaves_on_the_host(armed):
+    """On a mesh of the CPU twice ``Encoder.encode_pcm`` de-interleaves
+    each dispatch's bytes on the host (one ``wav.planar_samples`` span a
+    dispatch), unpacks nothing, and writes the single device's bytes."""
+    from zigflac_tpu_torch.parallel.mesh import default_mesh
+
+    wav = _wav(16, 2 * 4096 + 99, 8, 3000)
+    cfg = EncoderConfig()
+    unpack.reset_counts()
+    got = _route(wav, cfg, pipeline.DevicePipeline(cfg, 16, "cpu",
+                                                   mesh=default_mesh(["cpu"] * 2)))
+    t = stages.totals()
+    c = dict(stages.COUNTS)
+    assert t["wav.planar_samples"][0] == t["pipeline.dispatch_batch"][0] + t[
+        "pipeline.dispatch_tail"][0] == 2
+    assert c["pipeline.frames_unpacked"] == 0 and unpack.PLAIN_CALLS == 0
+    stages.SPANS, stages.COUNTS = None, None
+    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("seek", [None, 4096])
-def test_card_fed_encode_wav_bytes_spans_split_the_call(armed, card_fed, seek):
-    """On the card-fed route ``encode_wav_bytes`` gives the planar route's
-    bytes, opens no ``wav.planar_samples`` or ``wav.raw_copy``, counts
-    every encoded row as unpacked, and its layers' spans still add up to the
-    call: feed + session + h2d + dispatch (self) + wait + collect + the
-    call's own time."""
+def test_card_fed_encode_wav_bytes_spans_split_the_call(armed, seek):
+    """On the PCM route (the card's, and the CPU device's)
+    ``encode_wav_bytes`` gives the planar route's bytes, opens no
+    ``wav.planar_samples`` or ``wav.raw_copy``, counts every encoded row as
+    unpacked, and its layers' spans still add up to the call: feed +
+    session + h2d + dispatch (self) + wait + collect + the call's own
+    time."""
     wav = _wav(16, 2 * 4096 + 99, 6, 300)
     got = zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu", seek_interval=seek,
                                              tags=[("TITLE", "x")])
     t = stages.totals()
     c = dict(stages.COUNTS)
     stages.SPANS, stages.COUNTS = None, None
-    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, device="cpu", seek_interval=seek,
-                                                     tags=[("TITLE", "x")])
+    assert got == _planar(wav, EncoderConfig(), seek_interval=seek, tags=[("TITLE", "x")])
     assert "wav.planar_samples" not in t and "wav.raw_copy" not in t
     assert t["session.md5"][0] == 1 and t["pipeline.h2d"][0] == 4  # two dispatches' bytes and frame numbers
     assert c["pipeline.frames_unpacked"] == c["pipeline.frames_encoded"] == 3
@@ -312,7 +340,7 @@ def test_card_fed_encode_wav_bytes_spans_split_the_call(armed, card_fed, seek):
     assert parts == pytest.approx(t["encode.call"][1], rel=1e-9)
 
 
-def test_card_fed_route_refuses_a_tail_before_any_batch(card_fed, monkeypatch):
+def test_card_fed_route_refuses_a_tail_before_any_batch(monkeypatch):
     """A tail whose partition order the analysis cannot hold is refused
     before a single batch is unpacked, as on the planar route."""
     cfg = EncoderConfig(block_size=4096)

@@ -11,7 +11,9 @@ Entry points: ``encode_wav_bytes`` (bytes in, bytes out), ``encode_file``
 (file to file, O(device batch) host memory, native FLAC or Ogg-FLAC),
 ``encode_files`` / ``encode_wav_bytes_many`` (BASELINE config 4: full frames
 of same-format files fused into shared device batches) and
-``encode_to_file`` (planar samples to a seekable file).
+``encode_to_file`` (planar samples to a seekable file). The file entry
+points share one streaming writer (``_encode_group_fused``), and every
+entry point builds its metadata chain with ``_metadata_blocks``.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from ..ogg import OggStreamSink
 from ..utils import stages
 from ..utils.config import EncoderConfig
 from ..wav import WavReader, WavStreamReader, reconstruct_raw_bytes
-from .pipeline import TAIL_DEVICE_MIN, DevicePipeline
+from .pipeline import DevicePipeline
 
 
 def _check_seek_interval(seek_interval: Optional[int]) -> None:
@@ -99,12 +101,23 @@ def _md5_digest(job: Future) -> bytes:
     return digest
 
 
-def _tail_on_device(rem: int) -> bool:
-    """Whether a ragged tail of ``rem`` samples is dispatched to the device.
-    The port has no host oracle: every non-empty tail encodes on the device
-    at its exact block size (``TAIL_DEVICE_MIN`` is 1). The single-file,
-    streaming and fused paths all ask here."""
-    return rem >= TAIL_DEVICE_MIN
+def _metadata_blocks(info: StreamInfo, seekpoints=None, tags: Optional[List] = None,
+                     extra_metadata: Optional[List[bytes]] = None,
+                     padding: int = 0) -> List[bytes]:
+    """The metadata chain of every entry point: STREAMINFO (after the
+    'fLaC' magic), a SEEKTABLE of ``seekpoints`` where they are not None,
+    the VorbisComment of ``tags``, ``extra_metadata`` (blocks built with
+    is_last=False) and ``padding`` bytes of PADDING, the last-block flag on
+    the final block."""
+    blocks = [streaminfo_block(info, is_last=False)]
+    if seekpoints is not None:
+        blocks.append(seek_table_block(seekpoints, is_last=False))
+    blocks.append(vorbis_comment_block(is_last=False, tags=tags))
+    blocks.extend(extra_metadata or [])
+    if padding > 0:
+        blocks.append(padding_block(padding, is_last=False))
+    blocks[-1] = set_last_flag(blocks[-1])
+    return blocks
 
 
 class Encoder:
@@ -188,8 +201,8 @@ class Encoder:
         once and are unpacked there (``DevicePipeline.encode_pcm_stream``),
         and the MD5 worker hashes them where they are (``md5_job``, internal:
         the job ``encode_wav_bytes`` started at the parse; started here where
-        None). ``encode_wav_bytes`` takes this route where the pipeline is
-        ``card_fed``."""
+        None). On a mesh the pipeline de-interleaves each batch on the host
+        instead. ``encode_wav_bytes`` always takes this route."""
         _check_seek_interval(seek_interval)
         with stages.entry("encode.call"):
             if md5_job is None:
@@ -206,19 +219,11 @@ class Encoder:
         with stages.span("session.finish"):
             info.update_frame_sizes(sizes)
             info.md5 = md5
-
-            blocks = [streaminfo_block(info, is_last=False)]
+            pts = None
             if seek_interval:
                 pts = build_seekpoints(sizes, self.config.block_size, seek_interval,
                                        info.interchannel_samples)
-                blocks.append(seek_table_block(pts, is_last=False))
-            blocks.append(vorbis_comment_block(is_last=False, tags=tags))
-            for extra in extra_metadata or []:
-                blocks.append(extra)
-            if padding > 0:
-                blocks.append(padding_block(padding, is_last=False))
-            blocks[-1] = set_last_flag(blocks[-1])
-            return b"".join(blocks) + stream
+            return b"".join(_metadata_blocks(info, pts, tags, extra_metadata, padding)) + stream
 
     def _encode_samples(self, samples: np.ndarray, info: StreamInfo,
                         raw_pcm_bytes: Optional[bytes], md5_job: Optional[Future] = None):
@@ -234,7 +239,7 @@ class Encoder:
         batch = samples[:, : n_full * block].reshape(c, n_full, block).transpose(1, 0, 2)
         stream, sizes = self.pipeline.encode_frames_stream(
             batch, 0, info,
-            tail=samples[:, n_full * block :] if _tail_on_device(rem) else None,
+            tail=samples[:, n_full * block :] if rem else None,
         )
         return stream, sizes, md5_job
 
@@ -259,8 +264,7 @@ def encode_to_file(
             cfg = config or EncoderConfig.default(samples.shape[0])
             enc = Encoder(cfg, info.bit_depth, device)
 
-        out_file.write(b"\x00" * HEADER_SIZE)  # skipHeader
-        out_file.write(vorbis_comment_block(is_last=True))
+        out_file.write(bytes(HEADER_SIZE) + b"".join(_metadata_blocks(info)[1:]))  # skipHeader
         stream, sizes, md5_job = enc._encode_samples(samples, info, raw_pcm_bytes)
         out_file.write(stream)
         info.update_frame_sizes(sizes)
@@ -268,34 +272,29 @@ def encode_to_file(
 
         out_file.flush()
         out_file.seek(0)
-        out_file.write(streaminfo_block(info, is_last=False)[:HEADER_SIZE])
+        out_file.write(_metadata_blocks(info)[0])
         out_file.flush()
         return info
 
 
-def _default_meta_chain(info: StreamInfo):
-    """The default-metadata chain (STREAMINFO + empty VorbisComment) as
-    Ogg-sink blocks: streaminfo_block's leading 'fLaC' magic lives in the
-    mapping header inside Ogg, so it is stripped here."""
-    return [
-        streaminfo_block(info, is_last=False)[4:],
-        vorbis_comment_block(is_last=True),
-    ]
-
-
 class _FileJob:
-    """Per-file bookkeeping for the fused multi-file encode: the output
-    stream (placeholder header already written), incremental MD5, collected
-    frame sizes, and the outstanding-dispatch counter that gates the closing
-    seek-back. With an Ogg ``sink`` the same two-pass protocol runs at page
-    granularity (ogg.OggStreamSink) and frames packetize as they collect."""
+    """Per-file bookkeeping of the streaming file encode: the output stream
+    (its metadata chain already written, STREAMINFO and any SEEKTABLE as
+    placeholders), incremental MD5, collected frame sizes, and the
+    outstanding-dispatch counter that gates the closing seek-back. With
+    ``ogg`` the same two-pass protocol runs at page granularity
+    (ogg.OggStreamSink) and frames packetize as they collect. The SEEKTABLE
+    (every ``seek_interval`` samples) is reserved at its exact final size,
+    derived from the geometry alone."""
 
     __slots__ = (
-        "info", "out", "md5", "sizes", "frame_no", "reading_done",
-        "queued", "inflight", "finalized", "sink", "samples_emitted",
+        "info", "out", "md5", "sizes", "frame_no", "reading_done", "queued", "inflight",
+        "finalized", "sink", "samples_emitted", "seek_interval", "n_points", "meta",
     )
 
-    def __init__(self, info: StreamInfo, out, sink=None) -> None:
+    def __init__(self, info: StreamInfo, out, ogg: bool = False, tags: Optional[List] = None,
+                 seek_interval: Optional[int] = None, padding: int = 0,
+                 extra_metadata: Optional[List[bytes]] = None) -> None:
         self.info = info
         self.out = out
         self.md5 = native.Md5Stream()
@@ -305,8 +304,25 @@ class _FileJob:
         self.queued = 0    # accumulator runs + tails not yet dispatched
         self.inflight = 0  # dispatched segments not yet collected
         self.finalized = False
-        self.sink = sink
+        self.sink = OggStreamSink(out) if ogg else None
         self.samples_emitted = 0
+        self.seek_interval = seek_interval
+        self.n_points = (_count_seekpoints(info.interchannel_samples, info.max_block_size,
+                                           seek_interval) if seek_interval else 0)
+        self.meta = (tags, extra_metadata, padding)
+        chain = self._chain([(0, 0, 0)] * self.n_points if seek_interval else None)
+        if self.sink is not None:
+            self.sink.write_headers(chain)
+        else:
+            out.write(bytes(HEADER_SIZE) + b"".join(chain[1:]))  # skipHeader
+
+    def _chain(self, seekpoints) -> List[bytes]:
+        """The metadata chain; inside Ogg the 'fLaC' magic lives in packet
+        1's mapping header, so STREAMINFO's block drops it."""
+        blocks = _metadata_blocks(self.info, seekpoints, *self.meta)
+        if self.sink is not None:
+            blocks[0] = blocks[0][4:]
+        return blocks
 
     def _frame_samples(self, k: int) -> List[int]:
         """Sample counts of the next ``k`` sequential frames (frames
@@ -331,14 +347,21 @@ class _FileJob:
         all_sizes = np.concatenate(self.sizes) if self.sizes else np.zeros(0, np.int64)
         self.info.update_frame_sizes(all_sizes)
         self.info.md5 = self.md5.digest()
+        pts = None
+        if self.seek_interval:
+            pts = build_seekpoints(all_sizes, self.info.max_block_size, self.seek_interval,
+                                   self.info.interchannel_samples)
+            if len(pts) != self.n_points:
+                raise RuntimeError("seekpoint geometry mismatch")
+        chain = self._chain(pts)
         if self.sink is not None:
-            self.sink.finalize(_default_meta_chain(self.info))
-            self.finalized = True
-            return
-        self.out.flush()
-        self.out.seek(0)
-        self.out.write(streaminfo_block(self.info, is_last=False)[:HEADER_SIZE])
-        self.out.flush()
+            self.sink.finalize(chain)
+        else:
+            self.out.flush()
+            self.out.seek(0)
+            # STREAMINFO, then the SEEKTABLE where there is one
+            self.out.write(b"".join(chain[: 1 if pts is None else 2]))
+            self.out.flush()
         self.finalized = True
 
 
@@ -347,21 +370,24 @@ def _encode_group_fused(
     open_in,
     open_out,
     infos: List[Optional[StreamInfo]],
-    cfg: EncoderConfig,
     enc: Encoder,
     frames_per_chunk: Optional[int],
     ogg: bool = False,
+    meta: Optional[dict] = None,
 ) -> None:
-    """Core of the multi-file encode: stream every file in ``idxs`` through
-    one shared pipeline, fusing full frames across file boundaries into
-    device batches (per-file frame numbering preserved). Host memory stays
+    """Core of every file encode: stream every file in ``idxs`` (``open_in``
+    gives its ``WavStreamReader``, ``open_out`` its output) through one
+    shared pipeline, fusing full frames across file boundaries into device
+    batches (per-file frame numbering preserved). Host memory stays
     O(device batch): one input file is open at a time, at most ``window``
     batches are in flight, and each file's output finalizes (seek-back
-    STREAMINFO) as soon as its last frame collects."""
+    STREAMINFO) as soon as its last frame collects. ``meta`` holds
+    ``_FileJob``'s metadata arguments; without it each file gets the
+    default chain."""
     pipe = enc.pipeline
-    block = cfg.block_size
+    block = enc.config.block_size
     bs = frames_per_chunk or pipe.batch_size
-    window = 2  # in-flight batches (matches encode_file_streaming)
+    window = 2  # in-flight batches: bounds host memory while the device overlaps reads
 
     jobs: dict = {}
     pending: deque = deque()  # (rec, segments); segment = (file_idx, nframes)
@@ -417,19 +443,9 @@ def _encode_group_fused(
             drain_one()
 
     for i in idxs:
-        with WavStreamReader(open_in(i), _close=True) as wav:
-            info = wav.flac_streaminfo(block)
-            infos[i] = info
-            out = open_out(i)
-            if ogg:
-                sink = OggStreamSink(out)
-                job = _FileJob(info, out, sink=sink)
-                sink.write_headers(_default_meta_chain(info))
-            else:
-                out.write(b"\x00" * HEADER_SIZE)
-                out.write(vorbis_comment_block(is_last=True))
-                job = _FileJob(info, out)
-            jobs[i] = job
+        with open_in(i) as wav:
+            info = infos[i] = wav.flac_streaminfo(block)
+            job = jobs[i] = _FileJob(info, open_out(i), ogg, **(meta or {}))
             c = wav.channels
             while True:
                 raw, planar = wav.read_samples(bs * block)
@@ -456,7 +472,7 @@ def _encode_group_fused(
                     taken += take
                     if acc_n == bs:
                         flush()
-                if _tail_on_device(rem):  # only on the final chunk of the file
+                if rem:  # only on the final chunk of the file
                     # queued until the accumulator batch holding this file's
                     # last full frames has been dispatched, so per-file byte
                     # order is preserved
@@ -498,7 +514,7 @@ def encode_files(
     with stages.entry("encode.call"):
         return _encode_files_core(
             in_paths,
-            lambda i: open(in_paths[i], "rb"),
+            lambda i: WavStreamReader.open(in_paths[i]),
             lambda i: open(out_paths[i], "wb"),
             close_out=True,
             config=config,
@@ -521,7 +537,7 @@ def _encode_files_core(
     n = len(keys_source)
     groups: dict = {}
     for i in range(n):
-        with WavStreamReader(open_in(i), _close=True) as probe:
+        with open_in(i) as probe:
             key = (probe.sample_rate, probe.bit_depth, probe.channels)
         groups.setdefault(key, []).append(i)
 
@@ -541,8 +557,8 @@ def _encode_files_core(
             return outs[i]
 
         try:
-            _encode_group_fused(idxs, open_in, open_out_tracked, infos, cfg, enc,
-                                frames_per_chunk, ogg=ogg)
+            _encode_group_fused(idxs, open_in, open_out_tracked, infos, enc, frames_per_chunk,
+                                ogg=ogg)
         finally:
             if close_out:
                 for f in outs.values():
@@ -563,7 +579,7 @@ def encode_wav_bytes_many(
         sinks = [io.BytesIO() for _ in wav_bytes_list]
         _encode_files_core(
             wav_bytes_list,
-            lambda i: io.BytesIO(wav_bytes_list[i]),
+            lambda i: WavStreamReader(io.BytesIO(wav_bytes_list[i])),
             lambda i: sinks[i],
             close_out=False,
             config=config,
@@ -587,9 +603,9 @@ def encode_wav_bytes(
     (src/main.zig + src/wav2flac.zig), encoded on ``device`` (the card
     unless the caller asks for the CPU; without a card, cuda raises). The
     STREAMINFO MD5 of the WAV's PCM bytes starts on the worker as soon as
-    they are parsed. On a single CUDA device those bytes go to the card as
-    they are (``Encoder.encode_pcm``); on a mesh or the CPU the host
-    de-interleaves them first."""
+    they are parsed, and the bytes go to the pipeline as they are
+    (``Encoder.encode_pcm``): a single device unpacks them there, a mesh
+    has the host de-interleave each batch."""
     with stages.entry("encode.call"):
         with stages.span("wav.parse"):
             wav = WavReader.from_bytes(wav_bytes)
@@ -598,17 +614,10 @@ def encode_wav_bytes(
             cfg = config or EncoderConfig.default(wav.channels)
             info = wav.flac_streaminfo(cfg.block_size)
             enc = Encoder(cfg, wav.bit_depth, device)
-        if enc.pipeline.card_fed:
-            return enc.encode_pcm(
-                wav.raw_pcm_bytes(), wav.bytes_per_sample, info, tags=tags,
-                seek_interval=seek_interval, padding=padding, extra_metadata=extra_metadata,
-                md5_job=md5_job,
-            )
-        with stages.span("wav.planar_samples"):
-            samples = wav.planar_samples()
-        return enc.encode_stream(
-            samples, info, tags=tags, seek_interval=seek_interval, padding=padding,
-            extra_metadata=extra_metadata, md5_job=md5_job,
+        return enc.encode_pcm(
+            wav.raw_pcm_bytes(), wav.bytes_per_sample, info, tags=tags,
+            seek_interval=seek_interval, padding=padding, extra_metadata=extra_metadata,
+            md5_job=md5_job,
         )
 
 
@@ -650,7 +659,8 @@ def encode_file_streaming(
     size and patched on the closing seek-back, alongside the reference's
     two-pass STREAMINFO protocol, src/wav2flac.zig:30-47), frames stream out
     as each device batch collects, and the MD5 accumulates incrementally
-    (native.Md5Stream). A failure deletes the partial output.
+    (native.Md5Stream). It is the multi-file core (``_encode_group_fused``)
+    over one file. A failure deletes the partial output.
 
     ``ogg=True`` writes Ogg-FLAC in the same single pass: header pages go
     out with placeholder STREAMINFO/SEEKTABLE payloads, frames packetize
@@ -659,150 +669,28 @@ def encode_file_streaming(
     keeps fixed — ogg.OggStreamSink).
     """
     # _count_seekpoints never terminates for interval <= 0 and a negative
-    # interval passes the truthiness gates below
+    # interval passes the truthiness gates of the writer
     _check_seek_interval(seek_interval)
 
     with stages.entry("encode.call"), WavStreamReader.open(input_path) as wav:
         with stages.span("session.setup"):
             cfg = config or EncoderConfig.default(wav.channels)
-            info = wav.flac_streaminfo(cfg.block_size)
+            wav.flac_streaminfo(cfg.block_size)  # refuses the WAV before any output exists
             enc = Encoder(cfg, wav.bit_depth, device)
-        block = cfg.block_size
-        if frames_per_chunk is None:
-            frames_per_chunk = enc.pipeline.batch_size
-
+        infos: List[Optional[StreamInfo]] = [None]
+        meta = dict(tags=tags, seek_interval=seek_interval, padding=padding,
+                    extra_metadata=extra_metadata)
         try:
-            info = _stream_frames_to_file(
-                wav, enc, info, output_path, block, frames_per_chunk,
-                tags, seek_interval, padding, extra_metadata, ogg=ogg,
-            )
+            with open(output_path, "wb") as out:
+                _encode_group_fused([0], lambda i: wav, lambda i: out, infos, enc,
+                                    frames_per_chunk, ogg=ogg, meta=meta)
         except BaseException:
             # never leave a partially written .flac behind (the in-memory
             # path fails before creating output; match that contract)
             with contextlib.suppress(OSError):
                 os.unlink(output_path)
             raise
-    return info
-
-
-def _stream_frames_to_file(
-    wav, enc, info, output_path, block, frames_per_chunk,
-    tags, seek_interval, padding, extra_metadata, ogg: bool = False,
-) -> StreamInfo:
-    """The body of ``encode_file_streaming`` once the feeder and encoder are
-    set up: writes the metadata chain, streams frames batch by batch (at
-    most 2 batches in flight), and patches STREAMINFO + SEEKTABLE on the
-    closing seek-back. Split out so the caller can delete the partial
-    output on any failure."""
-
-    def meta_chain(si_block, seekpoints):
-        """The full metadata chain for the Ogg sink (native writes it
-        piecewise below so it can seek-patch blocks individually).
-        streaminfo_block's output carries the 'fLaC' stream magic (the
-        native HEADER_SIZE covers it); inside Ogg the magic lives in
-        packet 1's mapping header instead, so strip it here."""
-        if si_block[:4] == b"fLaC":
-            si_block = si_block[4:]
-        blocks = [si_block]
-        if seek_interval:
-            blocks.append(seek_table_block(seekpoints, is_last=False))
-        blocks.append(vorbis_comment_block(is_last=False, tags=tags))
-        for extra in extra_metadata or []:
-            blocks.append(extra)
-        if padding > 0:
-            blocks.append(padding_block(padding, is_last=False))
-        blocks[-1] = set_last_flag(blocks[-1])
-        return blocks
-
-    pipe = enc.pipeline
-    with open(output_path, "wb") as out:
-        # -- metadata chain (STREAMINFO + SEEKTABLE patched at the end) --
-        seek_pos = None
-        n_points = 0
-        if seek_interval:
-            n_points = _count_seekpoints(info.interchannel_samples, block, seek_interval)
-        sink = None
-        if ogg:
-            sink = OggStreamSink(out)
-            sink.write_headers(
-                meta_chain(streaminfo_block(info, is_last=False), [(0, 0, 0)] * n_points)
-            )
-        else:
-            out.write(b"\x00" * HEADER_SIZE)
-            if seek_interval:
-                seek_pos = out.tell()
-                out.write(seek_table_block([(0, 0, 0)] * n_points, is_last=False))
-            blocks = [vorbis_comment_block(is_last=False, tags=tags)]
-            for extra in extra_metadata or []:
-                blocks.append(extra)
-            if padding > 0:
-                blocks.append(padding_block(padding, is_last=False))
-            blocks[-1] = set_last_flag(blocks[-1])
-            for b in blocks:
-                out.write(b)
-
-        # -- stream frames chunk by chunk --------------------------------
-        md5 = native.Md5Stream()
-        sizes: List[np.ndarray] = []
-        pending: deque = deque()
-        spf_pending: deque = deque()  # per-batch per-frame sample counts
-        frame_no = 0
-
-        def drain_one():
-            frame_bytes, frame_sizes = pipe.collect_batch(pending.popleft(), info)
-            samples_per_frame = spf_pending.popleft()
-            if sink is not None:
-                sink.add_frames(frame_bytes, frame_sizes, samples_per_frame)
-            else:
-                out.write(frame_bytes)
-            sizes.append(np.asarray(frame_sizes, np.int64))
-
-        while True:
-            raw, planar = wav.read_samples(frames_per_chunk * block)
-            if planar.shape[1] == 0:
-                break
-            md5.update(raw)
-            c, m = planar.shape
-            n_full = m // block
-            rem = m - n_full * block
-            if n_full:
-                chunk = planar[:, : n_full * block].reshape(c, n_full, block).transpose(1, 0, 2)
-                fns = frame_no + np.arange(n_full, dtype=np.int64)
-                pending.append(pipe.dispatch_batch(chunk, fns, info))
-                spf_pending.append(np.full(n_full, block, np.int64))
-            if _tail_on_device(rem):  # ragged tails only end the final chunk
-                pending.append(pipe.dispatch_tail(planar[:, n_full * block :],
-                                                  frame_no + n_full, info))
-                spf_pending.append(np.array([rem], np.int64))
-            # keep at most 2 batches in flight: the window bounds host
-            # memory while device compute overlaps disk reads
-            while len(pending) > 2:
-                drain_one()
-            frame_no += n_full + (1 if rem else 0)
-        while pending:
-            drain_one()
-
-        all_sizes = np.concatenate(sizes) if sizes else np.zeros(0, np.int64)
-        info.update_frame_sizes(all_sizes)
-        info.md5 = md5.digest()
-
-        # -- closing seek-back: STREAMINFO + SEEKTABLE -------------------
-        pts = []
-        if seek_interval:
-            pts = build_seekpoints(all_sizes, block, seek_interval, info.interchannel_samples)
-            if len(pts) != n_points:
-                raise RuntimeError("seekpoint geometry mismatch")
-        if sink is not None:
-            sink.finalize(meta_chain(streaminfo_block(info, is_last=False), pts))
-        else:
-            out.flush()
-            out.seek(0)
-            out.write(streaminfo_block(info, is_last=False)[:HEADER_SIZE])
-            if seek_pos is not None:
-                out.seek(seek_pos)
-                out.write(seek_table_block(pts, is_last=False))
-            out.flush()
-    return info
+    return infos[0]
 
 
 def encode_file(

@@ -4,9 +4,10 @@ frames [N, C, B] PCM  ──(device)──>  dense frame-stream words + sizes
                                        │
                           (host) slice + write — no per-frame work
 
-On a single CUDA device ``encode_pcm_stream`` takes a WAV's interleaved
-PCM bytes as they are: each batch's bytes cross to the card once and the
-PCM unpack kernel (``ops/unpack.py``) makes its frames there.
+On a single device ``encode_pcm_stream`` takes a WAV's interleaved PCM
+bytes as they are: each batch's bytes cross to the device once and the PCM
+unpack (``ops/unpack.py``; the CUDA kernel on the card) makes its frames
+there. On a mesh the host de-interleaves each batch first.
 
 One batch function covers plane construction, stereo-mode and subframe
 selection, the Rice search (the CUDA analysis kernel on the card), bit
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..metadata import StreamInfo
-from ..native import assemble_frames, assemble_ranges
+from ..native import assemble_frames, assemble_ranges, deinterleave
 from ..ops.analyze import check_partition_order, lpc_order_of, plan_frames
 from ..ops.bitpack import ALIGN_W, compact_stream_aligned, max_frame_words, pack_frames
 from ..ops.crc16 import crc16_frames
@@ -41,13 +42,6 @@ from ..utils import stages
 from ..utils.config import EncoderConfig
 
 DEFAULT_BATCH = 1024
-
-# Ragged tails of every length encode on the device at their exact block
-# size. (The JAX package sends tails under 64 samples to its host oracle:
-# its symbol builder slices four warmup columns, which fails for 1-3
-# samples; this port slices min(B, max(4, lpc_order)), and a frame of
-# B <= max(4, lpc_order) samples is always constant or verbatim.)
-TAIL_DEVICE_MIN = 1
 
 # capacity ladder: (output-stream budget, per-frame word budget) as
 # fractions of raw PCM bytes. Tier 0 covers typical audio; tier 1 covers
@@ -211,13 +205,6 @@ class DevicePipeline:
         # None: a single device
         self._mesh = mesh if mesh is not None else _product_mesh(self.device)
 
-    @property
-    def card_fed(self) -> bool:
-        """Whether ``encode_wav_bytes`` hands this pipeline the WAV's own
-        bytes (``encode_pcm_stream``): a single CUDA device. A mesh takes
-        host chunks, and the CPU device planar samples."""
-        return self._mesh is None and self.device.type == "cuda"
-
     def _bucket(self, nreal: int) -> int:
         """The rows a batch of ``nreal`` frames is padded to: a power of
         two, on a mesh then a multiple of its size."""
@@ -315,24 +302,39 @@ class DevicePipeline:
         """``encode_frames_stream`` of every frame of a WAV's interleaved
         little-endian PCM bytes ``pcm`` (``info.interchannel_samples``
         sample frames of ``info.channels`` samples, ``bytes_per_sample``
-        bytes each): each batch's bytes, and the ragged tail's, cross to
-        the device as they are (``dispatch_pcm``). A single device only."""
+        bytes each). On a single device each batch's bytes, and the ragged
+        tail's, cross to the device as they are (``dispatch_pcm``); on a
+        mesh the host de-interleaves them (``_dispatch_planar``). Every
+        non-empty tail encodes on the device at its exact block size."""
         n = info.interchannel_samples
         block = self.config.block_size
         n_full, rem = divmod(n, block)
         step = block * info.channels * bytes_per_sample  # bytes a full frame
-        if rem >= TAIL_DEVICE_MIN:
+        if rem > 0:
             check_partition_order(rem, self.config.max_rice_order)
+        dispatch = self.dispatch_pcm if self._mesh is None else self._dispatch_planar
         pending = []
         for start in range(0, n_full, self.batch_size):
             stop = min(start + self.batch_size, n_full)
-            pending.append(self.dispatch_pcm(pcm[start * step : stop * step], bytes_per_sample,
-                                             block, np.arange(start, stop, dtype=np.int64),
-                                             info))
-        if rem >= TAIL_DEVICE_MIN:
-            pending.append(self.dispatch_pcm(pcm[n_full * step :], bytes_per_sample, rem,
-                                             np.array([n_full], np.int64), info))
+            pending.append(dispatch(pcm[start * step : stop * step], bytes_per_sample, block,
+                                    np.arange(start, stop, dtype=np.int64), info))
+        if rem > 0:
+            pending.append(dispatch(pcm[n_full * step :], bytes_per_sample, rem,
+                                    np.array([n_full], np.int64), info))
         return self._collect_all(pending, info)
+
+    def _dispatch_planar(self, pcm: memoryview, bytes_per_sample: int, block: int,
+                         fns: np.ndarray, info) -> dict:
+        """``dispatch_pcm`` on a mesh: the host de-interleaves the bytes
+        (as ``WavReader.planar_samples`` does) and dispatches the frames
+        through ``dispatch_batch``, a ragged tail through
+        ``dispatch_tail``."""
+        c, k = info.channels, len(fns)
+        with stages.span("wav.planar_samples"):
+            planar = deinterleave(pcm, c, bytes_per_sample, self.bit_depth, k * block)
+        if block < self.config.block_size:
+            return self.dispatch_tail(planar, int(fns[0]), info)
+        return self.dispatch_batch(planar.reshape(c, k, block).transpose(1, 0, 2), fns, info)
 
     def _collect_all(self, pending: list, info) -> Tuple[bytes, np.ndarray]:
         """Collect every dispatched batch in order and join their bytes and
@@ -399,7 +401,11 @@ class DevicePipeline:
 
     def dispatch_tail(self, tail: np.ndarray, frame_number: int, info) -> dict:
         """Dispatch a ragged final frame ``[C, rem]`` at its exact block
-        size, numbered ``frame_number``; refused as ``dispatch_batch``."""
+        size, numbered ``frame_number``; refused as ``dispatch_batch``.
+        Every length encodes here: the JAX package sends tails under 64
+        samples to its host oracle, since its symbol builder slices four
+        warmup columns; this port slices min(B, max(4, lpc_order)), and a
+        frame of B <= max(4, lpc_order) samples is constant or verbatim."""
         with stages.span("pipeline.dispatch_tail"):
             check_partition_order(tail.shape[-1], self.config.max_rice_order)
             rec = {"chunk": tail[None, ...], "nreal": 1,
