@@ -103,7 +103,12 @@ Phases:
      the warm wall time, x-realtime, the stage times, and the LPC pieces of
      one batch's analysis (lag sums, Levinson, residuals, Rice estimate;
      the fixed analysis and the LPC Rice estimate as plain ops and as
-     kernels).
+     kernels); the lag sums kernel (zf_lag_sums) equal to the plain
+     lag_sums and timed through its wrapper beside lags_bound, on that
+     batch under the one Tukey(0.5) at order 8 and under flac -8's six
+     windows at order 12, in its narrow arithmetic and in its limbs; then
+     flac -8 on 65 frames through encode_wav_bytes, equal to the CPU
+     port's bytes.
   6. Depth 32: bench.py's 32-bit input with fixed and with LPC prediction
      must give the pinned bytes; a batch of 32-bit white noise overflows
      tier 0, re-encodes at the exact tier through the kernel's
@@ -165,8 +170,9 @@ Every encode or decode path under test in this process (phases 3-10 and
 12; not the runs it is compared with, nor the CLI subprocesses) runs with the
 kernels' counts set to 0 just before it and read just after: it must have
 launched its kernels (for an encode the analysis, symbols, deposit and
-CRC-16 kernels, and the Rice kernel with LPC; for a decode the synthesis) and
-never called a plain version. The PCM unpack kernel must have launched
+CRC-16 kernels, and the Rice and lag sums kernels with LPC, whose counter
+lpc.lag_kernel_evals must equal lpc.window_evals; for a decode the
+synthesis) and never called a plain version. The PCM unpack kernel must have launched
 once a dispatch on a path that took the card-fed route (every
 encode_wav_bytes on the card, each of whose encoded rows must come from
 it) and never on any other path. Any failure raises, so the exit code is
@@ -282,6 +288,12 @@ ANALYSIS_INT32_OPS_PER_SAMPLE = 40
 RICE_INT32_OPS_PER_SAMPLE = 5
 # CRC-16 by table: a load, a shift, two xors and a mask a byte
 CRC_INT32_OPS_PER_BYTE = 4
+# the lag sums (csrc/lags_steps.cuh): a 32 x 32 -> 64-bit multiply-add a
+# sample, lag and window in the narrow arithmetic, four in the limbs
+LAG_INT32_OPS_PER_MAC = 3
+# flac -8's list of LPC windows (six)
+FLAC8_APODIZATION = ("tukey(5e-1)", "partial_tukey(2)", "punchout_tukey(3)")
+LAG_WIDE_INT32_OPS_PER_MAC = 12
 # per plane, the scalar outputs (order, bits, method, part_order int64; ok,
 # all_eq bool) and the 256 int64 params
 ANALYSIS_OUT_BYTES_PER_PLANE = 4 * 8 + 2 + 256 * 8
@@ -344,6 +356,16 @@ def analysis_bound(p: int, b: int, in_bytes_per_sample: int, fixed: bool):
         nbytes = p * b * in_bytes_per_sample + p * 8 + p * (ANALYSIS_OUT_BYTES_PER_PLANE - 10)
         ops = RICE_INT32_OPS_PER_SAMPLE * p * b
     return (nbytes, *_bound(nbytes, ops))
+
+
+def lags_bound(p: int, b: int, nwin: int, order: int, elem: int, narrow: bool):
+    """(bytes, ms, bound_by, ops_ms) of one lag sums launch: p planes of b
+    samples (``elem`` bytes each) and the nwin int16 windows read once, the
+    triples written once; (order + 1) multiply-adds a sample and window at
+    LAG_INT32_OPS_PER_MAC (narrow) or LAG_WIDE_INT32_OPS_PER_MAC."""
+    nbytes = p * b * elem + nwin * b * 2 + nwin * p * (order + 1) * 3 * 8
+    per_mac = LAG_INT32_OPS_PER_MAC if narrow else LAG_WIDE_INT32_OPS_PER_MAC
+    return (nbytes, *_bound(nbytes, per_mac * nwin * p * b * (order + 1)))
 
 
 def crc_bound(byte_len: np.ndarray, w: int):
@@ -1821,6 +1843,7 @@ def main() -> int:
     from zigflac_tpu_torch.ops import (_build, analyze, bitpack, crc16, deposit, lpc, symbols,
                                        synth, unpack)
     from zigflac_tpu_torch.utils import stages
+    from zigflac_tpu_torch.utils.apodization import TUKEY_HALF, windows_of
     from zigflac_tpu_torch.wav import WavReader, write_wav
 
     dev = torch.device("cuda")
@@ -2118,16 +2141,18 @@ def main() -> int:
     noise_cpu = zt.encode_wav_bytes(wav_noise, device="cpu")
 
     launches = {"total": 0, "global_rows": 0, "analysis": 0, "rice": 0, "crc": 0, "symbols": 0,
-                "unpack": 0}
+                "unpack": 0, "lags": 0}
+    lpc_ops = lpc  # counted() takes a flag of that name
 
     def counted(path, fn, lpc=False, fed=False):
         """Run one encode path with the counts at 0 before it; it must
         launch the analysis, symbols, deposit and CRC kernels (and, with
-        ``lpc``, the Rice kernel) and never call a plain version. The PCM
+        ``lpc``, the Rice and lag sums kernels, the lag sums for every plane
+        and window the search counts) and never call a plain version. The PCM
         unpack must launch once a dispatch where the path took the card-fed
         route (``fed``: it must, and encode every row from the unpack's
         frames), else never."""
-        for m in (deposit, synth, analyze, crc16, symbols, unpack):
+        for m in (deposit, synth, analyze, crc16, symbols, unpack, lpc_ops):
             m.reset_counts()
         armed = stages.SPANS is None
         if armed:
@@ -2141,12 +2166,17 @@ def main() -> int:
                 stages.SPANS = stages.COUNTS = None
         k, g, p = deposit.KERNEL_LAUNCHES, deposit.GLOBAL_ROW_LAUNCHES, deposit.PLAIN_CALLS
         ka, kr, kc = analyze.KERNEL_LAUNCHES, analyze.RICE_KERNEL_LAUNCHES, crc16.KERNEL_LAUNCHES
-        ks = symbols.KERNEL_LAUNCHES
+        ks, kl = symbols.KERNEL_LAUNCHES, lpc_ops.LAG_KERNEL_LAUNCHES
         plain = (p + synth.PLAIN_CALLS + analyze.PLAIN_CALLS + crc16.PLAIN_CALLS
-                 + symbols.PLAIN_CALLS + unpack.PLAIN_CALLS)
-        if k == 0 or ka == 0 or kc == 0 or ks == 0 or (lpc and kr == 0) or plain != 0:
-            raise AssertionError(f"{path}: {k} deposit, {ka} analysis, {ks} symbols, {kr} Rice "
-                                 f"and {kc} CRC launches, {plain} plain calls")
+                 + symbols.PLAIN_CALLS + unpack.PLAIN_CALLS + lpc_ops.PLAIN_CALLS)
+        if (k == 0 or ka == 0 or kc == 0 or ks == 0 or (lpc and (kr == 0 or kl == 0))
+                or plain != 0):
+            raise AssertionError(f"{path}: {k} deposit, {ka} analysis, {ks} symbols, {kr} Rice, "
+                                 f"{kl} lag sums and {kc} CRC launches, {plain} plain calls")
+        evals = (counts.get("lpc.lag_kernel_evals", 0), counts.get("lpc.window_evals", 0))
+        if evals[0] != evals[1]:
+            raise AssertionError(f"{path}: the lag sums kernel ran {evals[0]} planes x windows "
+                                 f"of the search's {evals[1]}")
         unpacked = counts.get("pipeline.frames_unpacked", 0)
         dispatches = sum(spans[n][0] for n in ("pipeline.dispatch_batch",
                                                "pipeline.dispatch_tail") if n in spans)
@@ -2163,6 +2193,7 @@ def main() -> int:
         launches["rice"] += kr
         launches["crc"] += kc
         launches["symbols"] += ks
+        launches["lags"] += kl
         return out, k, g
 
     def counted_decode(path, fn):
@@ -2346,6 +2377,42 @@ def main() -> int:
             res, sel[0], 8, 14)),
     }
     _log("5-lpc-pieces", planes=list(planes.shape), ms=pieces)
+
+    # the lag sums kernel on that batch, under the one Tukey(0.5) at config
+    # 3's order and under flac -8's six windows at order 12, in its narrow
+    # arithmetic (16-bit planes and the 17-bit side) and in its limbs: equal
+    # to the plain lag_sums, timed through the wrapper (its launches alone
+    # and in a CUDA graph: tools/torch_lags_kernel.py)
+    six = windows_of(zt.EncoderConfig(apodization=FLAC8_APODIZATION))
+    lag_times = {}
+    for name, wins, order in (("config3_tukey", (TUKEY_HALF,), cfg_lpc.lpc_order),
+                              ("flac8_six_windows", six, 12)):
+        wt = lpc.windows_tensor(wins, BLOCK, dev)
+        plain_fn = lambda: lpc.lag_sums(planes.unsqueeze(0), order,
+                                        wt.view(len(wins), 1, 1, BLOCK))
+        want = plain_fn()
+        entry = {"windows": len(wins), "order": order,
+                 "plain_ms": cuda_ms(torch, plain_fn, reps=3)}
+        for tier, bits in (("narrow", 17), ("limbs", None)):
+            fn = lambda: lpc.lag_sums_planes(planes, order, wt, bits)
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"lag sums kernel ({tier}) != plain on {name}")
+            nbytes, bound_ms, bound_by, ops_ms = lags_bound(
+                planes.numel() // BLOCK, BLOCK, len(wins), order, 4, bits is not None)
+            ms = cuda_ms(torch, fn)
+            entry[tier] = dict(kernel_ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                               bound_ops_ms=ops_ms, bound_bytes=nbytes,
+                               share_of_bound=bound_ms / ms)
+        lag_times[name] = entry
+        del want
+    _log("5-lag-sums", planes=list(planes.shape), ptxas=ptxas_of(("lag_sums_kernel",)),
+         **lag_times)
+    flac8_lags = lag_times["flac8_six_windows"]
+    lags_entry = {"name": "lag_sums", "route": "cuda", "source": "zigflac_tpu_torch/csrc/lags.cu",
+                  "replaces": "zigflac_tpu/ops/lpc.py:195", "max_abs_err": 0,
+                  "ms": flac8_lags["narrow"]["kernel_ms"], "plain_ms": flac8_lags["plain_ms"],
+                  "bound_ms": flac8_lags["narrow"]["bound_ms"],
+                  "bound_by": flac8_lags["narrow"]["bound_by"], "library_ms": None}
     del planes, lags, sel, res
 
     (flac, wall, _), k, _ = counted("config 1 with LPC", lambda: timed_encode(wav1, cfg_lpc),
@@ -2353,6 +2420,19 @@ def main() -> int:
     check("config 1 with LPC", flac, CONFIG1_LPC_FLAC_BYTES, CONFIG1_LPC_FLAC_SHA)
     _log("5-285s", flac_bytes=len(flac), ratio=len(flac) / len(wav1), wall_s=wall,
          x_realtime=CONFIG1_SECONDS / wall, kernel_launches=k)
+
+    # flac -8's six-window search through encode_wav_bytes on 64 frames and
+    # a tail, against the CPU port's bytes: one lag sums launch a dispatch
+    cfg8 = zt.EncoderConfig(prediction="lpc", lpc_order=12, lpc_precision=12,
+                            max_rice_order=6, apodization=FLAC8_APODIZATION)
+    wav8 = bench_wav(write_wav, 64 * BLOCK + 777)
+    flac8_cpu = zt.encode_wav_bytes(wav8, config=cfg8, device="cpu")
+    flac, k, _ = counted("flac -8", lambda: zt.encode_wav_bytes(wav8, config=cfg8, device=dev),
+                         lpc=True, fed=True)
+    if flac != flac8_cpu:
+        raise AssertionError("flac -8: the card's bytes differ from the CPU port's")
+    _log("5-flac8", frames=65, flac_bytes=len(flac), kernel_launches=k,
+         lag_kernel_launches=lpc.LAG_KERNEL_LAUNCHES)
 
     # -- phase 6: depth 32 -----------------------------------------------------
     seconds32 = DEPTH32_SAMPLES / RATE
@@ -2406,8 +2486,9 @@ def main() -> int:
     crc_entry["launches"] = launches["crc"]
     symbols_entry["launches"] = launches["symbols"]
     unpack_entry["launches"] = launches["unpack"]
+    lags_entry["launches"] = launches["lags"]
     print(json.dumps({"kernels": [synth_entry, fixed_entry, rice_entry, symbols_entry, crc_entry,
-                                  unpack_entry, {
+                                  unpack_entry, lags_entry, {
         "name": "deposit_words",
         "route": "cuda",
         "source": "zigflac_tpu_torch/csrc/deposit.cu",

@@ -18,6 +18,7 @@ import zigflac_tpu_torch
 from zigflac_tpu_torch import EncoderConfig
 from zigflac_tpu_torch.models import pipeline
 from zigflac_tpu_torch.ops import deposit, synth, unpack
+from zigflac_tpu_torch.utils.apodization import TUKEY_HALF, windows_of
 from zigflac_tpu_torch.wav import write_wav
 
 pytestmark = pytest.mark.cuda
@@ -853,6 +854,80 @@ def test_window_list_on_card_equals_cpu(rng):
     back = zigflac_tpu_torch.decode_flac(got, device="cuda")
     assert back.md5_ok and synth.KERNEL_LAUNCHES > 0
     assert np.array_equal(back.samples, zigflac_tpu_torch.decode_flac(got, device="cpu").samples)
+
+
+# -- the lag sums kernel ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("depth,wins,order,sample_bits", [
+    (17, "tukey", 8, 17), (17, "flac8", 12, 17), (17, "flac8", 12, None), (24, "tukey", 8, 25),
+    (17, "tukey", 32, 17), (33, "tukey", 8, 33), (17, "flac8", 32, None),
+], ids=["config3", "flac8", "flac8-limbs", "hires", "order32", "side33", "flac8-order32"])
+def test_lag_sums_kernel_matches_plain(rng, depth, wins, order, sample_bits):
+    """zf_lag_sums == the plain lag_sums on the card at the main path's
+    batch (4 x 1024 planes of 4096; the int64 side plane 1024 x 4096): one
+    Tukey(0.5) or flac -8's six windows, orders 8, 12 and 32, in the narrow
+    arithmetic and in the limbs; one launch a call, no plain call, the
+    planes x windows counted."""
+    from zigflac_tpu_torch.ops import lpc
+    from zigflac_tpu_torch.utils import stages
+
+    p = 1024 if depth > 32 else 4 * 1024
+    shape = (p,) if depth > 32 else (4, 1024)
+    x = torch.from_numpy(_analysis_planes(rng, p, 4096, depth)).cuda().view(*shape, 4096)
+    ws = (TUKEY_HALF,) if wins == "tukey" else windows_of(EncoderConfig(**FLAC8))
+    wt = lpc.windows_tensor(ws, 4096, x.device)
+    lpc.reset_counts()
+    stages.COUNTS = {}
+    try:
+        got = lpc.lag_sums_planes(x, order, wt, sample_bits)
+    finally:
+        counts, stages.COUNTS = stages.COUNTS, None
+    assert (lpc.LAG_KERNEL_LAUNCHES, lpc.PLAIN_CALLS) == (1, 0)
+    assert counts == {"lpc.lag_kernel_evals": p * len(ws)}
+    want = lpc.lag_sums(x.unsqueeze(0), order,
+                        wt.view((len(ws),) + (1,) * (x.dim() - 1) + (4096,)))
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_lag_sums_kernel_refuses_without_launching(rng):
+    from zigflac_tpu_torch.ops import lpc
+
+    x = torch.zeros((3, 64), dtype=torch.int32, device="cuda")
+    w = lpc.windows_tensor((TUKEY_HALF,), 64, x.device)
+    lpc.reset_counts()
+    for args, exc in (((x, 33, w), ValueError), ((x, 0, w), ValueError),
+                      ((x, 8, w.long()), TypeError), ((x, 8, w.cpu()), ValueError),
+                      ((x, 8, w.expand(33, 64).contiguous()), ValueError),
+                      ((x.t().contiguous().t(), 8, w), ValueError),
+                      ((torch.zeros((1, 65536), dtype=torch.int32, device="cuda"), 8,
+                        torch.zeros((1, 65536), dtype=torch.int16, device="cuda")), ValueError)):
+        with pytest.raises(exc):
+            lpc.lag_sums_planes(*args)
+    assert (lpc.LAG_KERNEL_LAUNCHES, lpc.PLAIN_CALLS) == (0, 0)
+
+
+@pytest.mark.parametrize("fields", [dict(prediction="lpc"), FLAC8], ids=["config3", "flac-8"])
+def test_lpc_encode_through_the_lag_kernel_equals_cpu(rng, fields):
+    """An LPC encode on the card (config 3's settings: one Tukey(0.5) at
+    order 8; flac -8's six windows at order 12) launches the lag sums kernel
+    once an LPC analysis (the batch and the tail), for every plane and
+    window the search counts, and writes the CPU path's bytes, which are
+    the plain version's."""
+    from zigflac_tpu_torch.ops import lpc
+    from zigflac_tpu_torch.utils import stages
+
+    wav = _wav(rng, 3 * 4096 + 1000, 2, 16)
+    cfg = EncoderConfig(**fields)
+    lpc.reset_counts()
+    stages.COUNTS = {}
+    try:
+        got = zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cuda")
+    finally:
+        counts, stages.COUNTS = stages.COUNTS, None
+    assert (lpc.LAG_KERNEL_LAUNCHES, lpc.PLAIN_CALLS) == (2, 0)
+    assert counts["lpc.lag_kernel_evals"] == counts["lpc.window_evals"] > 0
+    assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
 
 
 # -- the frame symbols kernel ----------------------------------------------------------

@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
     lib.zf_frame_symbols.restype = ctypes.c_int
     lib.zf_unpack_pcm.argtypes = [ptr, ptr, i32, i32, i32, i64, i64, i64, ptr]
     lib.zf_unpack_pcm.restype = ctypes.c_int
+    lib.zf_lag_sums.argtypes = [ptr, i32, i32, ptr, i64, i64, i64, i64, ptr, ptr]
+    lib.zf_lag_sums.restype = ctypes.c_int
     lib.zf_error_string.argtypes = [ctypes.c_int]
     lib.zf_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -27,7 +27,9 @@ and ``rice_estimate_planes`` route by device, a CUDA tensor to the kernel
 (or a raise), a CPU tensor to the plain versions ``best_fixed_order``,
 ``residuals_for_order`` and ``rice_estimate``. ``KERNEL_LAUNCHES`` counts
 ``zf_analyze_fixed`` launches, ``RICE_KERNEL_LAUNCHES`` ``zf_rice_estimate``
-launches and ``PLAIN_CALLS`` the plain routes of both wrappers.
+launches and ``PLAIN_CALLS`` the plain routes of both wrappers. The LPC
+candidate's lag sums, every window's in one launch, are
+``lpc.lag_sums_planes`` (``csrc/lags.cu`` on the card).
 
 Integer policy: every unsigned quantity travels as int64 (torch has no
 uint32/uint64 arithmetic on the CPU). Sums of zigzags stay below 2^48, so
@@ -37,7 +39,7 @@ sum is below half its size; ``rice_estimate`` reproduces that case exactly.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -469,16 +471,18 @@ def lpc_window_search(
     precision: int,
     max_rice_order: int,
     max_param: int,
+    sample_bits: Optional[int] = None,
 ) -> LpcSearch:
-    """Every window of ``windows`` (Q8 int64 [W, B]) over every plane
-    ``[..., B]`` at once, along a leading window axis: the lag sums, the
+    """Every window of ``windows`` (Q8 int16 [W, B], ``lpc.windows_tensor``)
+    over every plane ``[..., B]`` at once, along a leading window axis: the
+    lag sums (``lpc.lag_sums_planes``, which ``sample_bits`` serves), the
     Levinson candidates, the choice, the quantization, the residual and its
     Rice estimate, each as for one window. A window whose candidate is
     unusable costs ``I64_MAX``; the cheapest wins, the first in list order
     on a tie (strict ``<``)."""
     W, B = windows.shape
     x = planes.unsqueeze(0)
-    lags = lpc.lag_sums(x, lpc_order, windows.view((W,) + (1,) * (planes.dim() - 1) + (B,)))
+    lags = lpc.lag_sums_planes(planes.contiguous(), lpc_order, windows, sample_bits)
     pre = lpc.fixed_point_levinson(lags, lpc.lpc_candidate_orders(lpc_order))
     order, qc, shift, ok = lpc.select_lpc_candidate(pre, B, precision)
     res, fits = lpc.lpc_residuals(x.expand((W,) + tuple(planes.shape)), qc, shift, order,
@@ -562,8 +566,9 @@ def analyze_planes(
     max_param = min(
         30 if sample_size > 16 else MAX_RICE_PARAM_4BIT, config.max_rice_param
     )
+    planes = planes.contiguous()  # as the kernels read them
     order, ok, residuals, rice_bits, method, part_order, params, all_eq = analyze_fixed(
-        planes.contiguous(), wide, config.max_rice_order, max_param
+        planes, wide, config.max_rice_order, max_param
     )
     # a wide-mode overflow disqualifies the fixed candidate entirely
     rice_bits = torch.where(ok, rice_bits, I64_MAX)
@@ -577,9 +582,10 @@ def analyze_planes(
         stages.count("lpc.window_evals", planes.numel() // B * len(windows))
         search_start = stages.search_start(dev)
         searched = windows != (TUKEY_HALF,)
+        # every plane is within sample_size + 1 bits (the side plane's)
         if not searched:
             l_order, res_lpc, l_q, l_shift, l_ok = lpc.analyze_lpc(
-                planes, lpc_order, config.lpc_precision
+                planes, lpc_order, config.lpc_precision, sample_size + 1
             )
             l_bits, l_method, l_po, l_params = rice_estimate_planes(
                 res_lpc, l_order, config.max_rice_order, max_param
@@ -588,7 +594,7 @@ def analyze_planes(
         else:
             found = lpc_window_search(
                 planes, lpc.windows_tensor(windows, B, dev), lpc_order, config.lpc_precision,
-                config.max_rice_order, max_param,
+                config.max_rice_order, max_param, sample_size + 1,
             )
             l_order, res_lpc, l_q, l_shift, l_ok = (
                 found.order, found.residuals, found.qcoeffs, found.shift, found.ok)

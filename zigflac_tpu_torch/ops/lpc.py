@@ -29,6 +29,12 @@ Where a configuration lists other windows than the one Tukey(0.5)
 the host in Q8 the same way, and the analysis runs every window over every
 plane (``analyze.lpc_window_search``); the JAX package has the Tukey(0.5)
 alone.
+
+The lag sums of every plane under every window are one hand-written CUDA
+kernel on the card (``csrc/lags.cu``): ``lag_sums_planes`` routes by
+device, a CUDA tensor to the kernel (or a raise), a CPU tensor to the plain
+version ``lag_sums``. ``LAG_KERNEL_LAUNCHES`` counts ``zf_lag_sums``
+launches and ``PLAIN_CALLS`` the plain route.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.apodization import PART_OVERLAP, Window
+from ..utils import stages
+from ..utils.apodization import MAX_WINDOWS, PART_OVERLAP, TUKEY_HALF, Window
 
 MAX_LPC_ORDER = 32
 WINDOW_Q = 8  # window fixed-point fraction bits
@@ -47,6 +54,17 @@ _LIMB = 24    # limb width of the lag sums
 _Q = 28       # Levinson fixed-point fraction bits
 
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+# the widest samples (bits, two's complement) the kernel's narrow tier takes
+NARROW_BITS = 17
+
+LAG_KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def reset_counts() -> None:
+    global LAG_KERNEL_LAUNCHES, PLAIN_CALLS
+    LAG_KERNEL_LAUNCHES = 0
+    PLAIN_CALLS = 0
 
 
 @lru_cache(maxsize=32)
@@ -115,8 +133,10 @@ def _window(n: int, device: torch.device) -> torch.Tensor:
 
 @lru_cache(maxsize=32)
 def windows_tensor(wins: Tuple[Window, ...], n: int, device: torch.device) -> torch.Tensor:
-    """The windows' Q8 values stacked, int64 [W, n], on ``device``."""
-    return torch.from_numpy(np.stack([window_qw(w, n) for w in wins])).to(device)
+    """The windows' Q8 values stacked, narrowed to int16 [W, n] (they lie in
+    [0, 256]), on ``device``: what ``lag_sums_planes`` reads."""
+    return torch.from_numpy(np.stack([window_qw(w, n) for w in wins]).astype(np.int16)).to(
+        device)
 
 
 def lag_sums(planes: torch.Tensor, order: int,
@@ -130,8 +150,9 @@ def lag_sums(planes: torch.Tensor, order: int,
     product is at most 2^46 in magnitude for |x| <= 2^46 (a 33-bit side
     sample times the Q8 window is under 2^41). The hi*hi, hi*lo + lo*hi and
     lo*lo product sums then fit int64 for every block below 2^16 samples,
-    and the floor carries normalize the low two limbs. ``window`` (Q8
-    int64, broadcast against the planes) replaces the Q8 Tukey(0.5)."""
+    and the floor carries normalize the low two limbs. ``window`` (Q8, int16
+    or int64, broadcast against the planes) replaces the Q8 Tukey(0.5). The
+    plain version of ``lag_sums_planes``."""
     B = planes.shape[-1]
     w = _window(B, planes.device) if window is None else window
     x = planes.to(torch.int64) * w
@@ -148,6 +169,66 @@ def lag_sums(planes: torch.Tensor, order: int,
         hl2 = hl + (ll >> _LIMB)
         out.append(torch.stack([hh + (hl2 >> _LIMB), hl2 & m24, ll & m24], -1))
     return torch.stack(out, -2)
+
+
+def narrow_tier(dtype: torch.dtype, sample_bits: Optional[int]) -> bool:
+    """Whether ``zf_lag_sums`` takes its narrow arithmetic for planes of
+    ``dtype`` whose samples ``sample_bits`` bounds."""
+    return dtype == torch.int32 and sample_bits is not None and sample_bits <= NARROW_BITS
+
+
+def lag_sums_planes(planes: torch.Tensor, order: int, windows: torch.Tensor,
+                    sample_bits: Optional[int] = None) -> torch.Tensor:
+    """``lag_sums`` of planes ``[..., B]`` (int32, or int64 for the 33-bit
+    side plane) under each of the Q8 ``windows`` (int16 [W, B], as
+    ``windows_tensor`` gives them) on their device: int64 [W, ..., order+1,
+    3]. The CUDA kernel ``zf_lag_sums`` for CUDA tensors, one launch for
+    every plane and window; ``lag_sums`` for CPU tensors. ``sample_bits``,
+    where given, bounds the samples: each is a ``sample_bits``-bit two's
+    complement integer; int32 planes of at most ``NARROW_BITS`` take the
+    kernel's narrow arithmetic, every other plane its 24-bit limbs (the same
+    values)."""
+    global LAG_KERNEL_LAUNCHES, PLAIN_CALLS
+    B = planes.shape[-1] if planes.dim() else 0
+    if not 1 <= B <= 65535:
+        raise ValueError(f"block size must be 1..65535, got {B}")
+    if not 1 <= order <= MAX_LPC_ORDER:
+        raise ValueError(f"LPC order must be 1..{MAX_LPC_ORDER}, got {order}")
+    if sample_bits is not None and not 1 <= sample_bits <= 64:
+        raise ValueError(f"sample_bits must be 1..64, got {sample_bits}")
+    for name, t, dtypes in (("planes", planes, (torch.int32, torch.int64)),
+                            ("windows", windows, (torch.int16,))):
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+        if t.device != planes.device:
+            raise ValueError(f"{name} is on {t.device}, expected {planes.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    W = windows.shape[0] if windows.dim() == 2 else 0
+    if not 1 <= W <= MAX_WINDOWS or windows.shape[-1] != B:
+        raise ValueError(f"windows must be [1..{MAX_WINDOWS}, {B}], got {tuple(windows.shape)}")
+    if planes.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return lag_sums(planes.unsqueeze(0), order,
+                        windows.view((W,) + (1,) * (planes.dim() - 1) + (B,)))
+    if planes.device.type != "cuda":
+        raise NotImplementedError(f"no lag sums kernel for device {planes.device}")
+    from ._build import library
+
+    lib = library()
+    batch = tuple(planes.shape[:-1])
+    p = planes.numel() // B
+    out = torch.empty((W,) + batch + (order + 1, 3), dtype=torch.int64, device=planes.device)
+    narrow = narrow_tier(planes.dtype, sample_bits)
+    with torch.cuda.device(planes.device):
+        err = lib.zf_lag_sums(planes.data_ptr(), planes.dtype == torch.int64, narrow,
+                              windows.data_ptr(), W, p, B, order, out.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"lag sums kernel launch failed: {lib.zf_error_string(err).decode()}")
+    LAG_KERNEL_LAUNCHES += 1
+    stages.count("lpc.lag_kernel_evals", p * W)
+    return out
 
 
 def _bitlen_nonneg(x: torch.Tensor) -> torch.Tensor:
@@ -300,10 +381,13 @@ def lpc_candidate_orders(lpc_order: int) -> Tuple[int, ...]:
     return tuple(sorted(cands))
 
 
-def analyze_lpc(planes: torch.Tensor, lpc_order: int, precision: int):
-    """The LPC candidate of each plane: (order, residuals int32 [..., B],
-    qcoeffs [..., 32], shift, ok)."""
-    lags = lag_sums(planes, lpc_order)
+def analyze_lpc(planes: torch.Tensor, lpc_order: int, precision: int,
+                sample_bits: Optional[int] = None):
+    """The LPC candidate of each plane under the Q8 Tukey(0.5) window:
+    (order, residuals int32 [..., B], qcoeffs [..., 32], shift, ok).
+    ``sample_bits`` bounds the samples as ``lag_sums_planes`` takes it."""
+    wins = windows_tensor((TUKEY_HALF,), planes.shape[-1], planes.device)
+    lags = lag_sums_planes(planes.contiguous(), lpc_order, wins, sample_bits)[0]
     pre = fixed_point_levinson(lags, lpc_candidate_orders(lpc_order))
     order, qc, shift, ok = select_lpc_candidate(pre, planes.shape[-1], precision)
     res, fits = lpc_residuals(planes, qc, shift, order, lpc_order)
