@@ -108,7 +108,15 @@ Phases:
      batch under the one Tukey(0.5) at order 8 and under flac -8's six
      windows at order 12, in its narrow arithmetic and in its limbs; then
      flac -8 on 65 frames through encode_wav_bytes, equal to the CPU
-     port's bytes.
+     port's bytes. Then film-5.1-48k-24bit's settings (six independent
+     24-bit channels at 48 kHz, flac -8's windows, 15-bit coefficients): a
+     1024-frame batch's lag sums (in limbs) and deposit (95,744 B rows, over
+     the kernel's shared row) equal to their plain versions and timed beside
+     their bounds, its CRC-16, and 24 frames and a tail through
+     encode_wav_bytes equal to the CPU port's bytes, every deposit launch on
+     the global-memory branch, and back through decode_flac. The film
+     batch's times and bounds go into the last lines' lag sums and deposit
+     entries (``film_batch``).
   6. Depth 32: bench.py's 32-bit input with fixed and with LPC prediction
      must give the pinned bytes; a batch of 32-bit white noise overflows
      tier 0, re-encodes at the exact tier through the kernel's
@@ -215,6 +223,11 @@ DEPTH32_FLAC = {  # prediction -> (bytes, sha256)
     "lpc": (26_723_366, "46f5c76620ba637e5ca0a0614e7ab07a31234cac035339057c48a8b31f271e24"),
 }
 NOISE32_FRAMES = 64
+# film-5.1-48k-24bit's format: six independent 24-bit channels at 48 kHz
+FILM_RATE, FILM_DEPTH, FILM_CHANNELS = 48000, 24, 6
+# its short encode: 24 frames and a 3,000-sample tail, whose row (70,656 B at
+# tier 0) is over the deposit's shared row too
+FILM_SHORT_SAMPLES = 24 * BLOCK + 3000
 # config 2: bench.py's hires input, 24-bit / 96 kHz stereo, pinned with the
 # JAX package on the CPU
 CONFIG2_SAMPLES = 1024 * BLOCK
@@ -587,6 +600,19 @@ def bench_wav(write_wav, n, depth=16, rate=RATE, seed=0xBEEF) -> bytes:
     return buf.getvalue()
 
 
+def film_wav(write_wav, n, seed=0xF11) -> bytes:
+    """Six 24-bit channels at 48 kHz (5.1's FL FR FC LFE BL BR): a tone of
+    its own a channel, over noise of its own."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    x = np.stack([2.0e6 * 0.8 ** c * np.sin(2 * np.pi * (97 + 61 * c) * t / FILM_RATE + c)
+                  + rng.normal(0, 400 * (c + 1), n) for c in range(FILM_CHANNELS)])
+    lim = float(1 << (FILM_DEPTH - 1))
+    buf = io.BytesIO()
+    write_wav(buf, np.clip(np.round(x), -lim, lim - 1).astype(np.int64), FILM_RATE, FILM_DEPTH)
+    return buf.getvalue()
+
+
 def write_bench_wav(path, n, depth=16, rate=RATE, seed=0xBEEF, piece=1 << 21) -> int:
     """bench_wav's bytes written to ``path`` piece by piece, so a long file
     is never whole in memory. bench_wav draws the left channel's n normals
@@ -691,6 +717,83 @@ def run_cli(args, timeout=600, expect=0):
 def _read(path) -> bytes:
     with open(path, "rb") as f:
         return f.read()
+
+
+def phase5_film(env, frames=1024) -> dict:
+    """film-5.1-48k-24bit's settings (six independent 24-bit channels at 48
+    kHz, flac -8's six windows at order 12, 15-bit coefficients): one batch
+    of ``frames`` frames through the lag sums kernel (in its limbs) and the
+    deposit kernel (rows over its shared-memory row: the global-memory
+    branch), each against its plain version and timed beside its bound, and
+    the CRC-16 kernel over those rows; then a short film WAV through
+    encode_wav_bytes on the counted paths, equal to the CPU port's bytes with
+    every deposit launch on the global-memory branch, and back through
+    decode_flac. Returns the lag sums' and the deposit's batch entries."""
+    from zigflac_tpu_torch.utils.apodization import windows_of
+
+    torch, dev, zt, lpc, deposit = env.torch, env.dev, env.zt, env.lpc, env.deposit
+    cfg = zt.EncoderConfig(prediction="lpc", channels=FILM_CHANNELS, lpc_order=12,
+                           lpc_precision=15, max_rice_order=6, apodization=FLAC8_APODIZATION)
+    s = env.WavReader.from_bytes(film_wav(env.write_wav, frames * BLOCK)).planar_samples()
+    fr = torch.from_numpy(
+        s.reshape(FILM_CHANNELS, frames, BLOCK).transpose(1, 0, 2).copy()).to(dev)
+    del s
+
+    def entry(kernel_ms, plain_ms, bound):
+        return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_bytes=bound[0],
+                    bound_ms=bound[1], bound_by=bound[2], bound_ops_ms=bound[3],
+                    share_of_bound=bound[1] / kernel_ms)
+
+    # the lag sums of every plane under the six windows, as the search takes
+    # them (sample_bits 25: the limbs)
+    planes = fr.movedim(1, 0).contiguous()
+    wt = lpc.windows_tensor(windows_of(cfg), BLOCK, dev)
+    nwin = wt.shape[0]
+    run = lambda: lpc.lag_sums_planes(planes, cfg.lpc_order, wt, FILM_DEPTH + 1)
+    plain = lambda: lpc.lag_sums(planes.unsqueeze(0), cfg.lpc_order, wt.view(nwin, 1, 1, BLOCK))
+    if not torch.equal(run(), plain()):
+        raise AssertionError("lag sums kernel (limbs) != plain on film's batch")
+    lags = dict(planes=list(planes.shape), windows=nwin, order=cfg.lpc_order, **entry(
+        cuda_ms(torch, run), cuda_ms(torch, plain, reps=3),
+        lags_bound(planes.numel() // BLOCK, BLOCK, nwin, cfg.lpc_order, 4, False)))
+    del planes
+
+    # the batch's symbol stream at tier 0, the cell's word budget
+    plan = env.analyze.plan_frames(fr, FILM_DEPTH, cfg)
+    hs, mw, _ = env.pl.compact_shape(cfg, FILM_DEPTH, FILM_CHANNELS, BLOCK, FILM_RATE, 0, frames)
+    dep_cum, _, dv, dn = env.bitpack.frame_symbol_stream(
+        plan, torch.arange(frames, device=dev), hs, BLOCK, cfg.max_rice_order, cfg.lpc_order,
+        cfg.lpc_precision)
+    del plan, fr
+    dc, dn = dep_cum.to(torch.int32), dn.to(torch.int32)
+    del dep_cum
+    if mw * 4 <= deposit.shared_row_bytes():
+        raise AssertionError("film's rows fit the deposit's shared row")
+    env.compare(dc, dv, dn, mw)
+    words = deposit.deposit_words(dc, dv, dn, mw)
+    env.compare_crc(words, (dc[:, -1].to(torch.int64) + 7) >> 3)
+    dep = dict(symbols=list(dc.shape), max_words=mw, row_bytes=mw * 4, **entry(
+        cuda_ms(torch, lambda: deposit.deposit_words(dc, dv, dn, mw)),
+        cuda_ms(torch, lambda: deposit.deposit_words_plain(dc, dv, dn, mw), reps=3),
+        deposit_bound(frames, dc.numel(), mw)))
+    del words, dc, dv, dn
+    _log("5-film-batch", frames=frames, lag_sums=lags, deposit=dep)
+
+    wav = film_wav(env.write_wav, FILM_SHORT_SAMPLES)
+    want = zt.encode_wav_bytes(wav, config=cfg, device="cpu")
+    flac, k, g = env.counted("film", lambda: zt.encode_wav_bytes(wav, config=cfg, device=dev),
+                             lpc=True, fed=True)
+    if flac != want:
+        raise AssertionError("film: the card's bytes differ from the CPU port's")
+    if g != k:
+        raise AssertionError(f"film: {g} of {k} deposit launches took the global-memory branch")
+    back, ks = env.counted_decode("film decode", lambda: zt.decode_flac(flac, device=dev))
+    if not (back.md5_ok and np.array_equal(back.samples,
+                                           env.WavReader.from_bytes(wav).planar_samples())):
+        raise AssertionError("film: decode_flac did not give the samples back")
+    _log("5-film", samples=FILM_SHORT_SAMPLES, flac_bytes=len(flac), ratio=len(flac) / len(wav),
+         kernel_launches=k, global_row_launches=g, synth_launches=ks)
+    return {"lag_sums": lags, "deposit": dep}
 
 
 def phase7_config2(env, write_wav) -> bytes:
@@ -2433,6 +2536,12 @@ def main() -> int:
         raise AssertionError("flac -8: the card's bytes differ from the CPU port's")
     _log("5-flac8", frames=65, flac_bytes=len(flac), kernel_launches=k,
          lag_kernel_launches=lpc.LAG_KERNEL_LAUNCHES)
+    film = phase5_film(SimpleNamespace(
+        torch=torch, dev=dev, zt=zt, lpc=lpc, deposit=deposit, analyze=analyze, bitpack=bitpack,
+        pl=pl, WavReader=WavReader, write_wav=write_wav, compare=compare, compare_crc=compare_crc,
+        counted=counted, counted_decode=counted_decode))
+    film_line = lambda e: {k: e[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+    lags_entry["film_batch"] = film_line(film["lag_sums"])
 
     # -- phase 6: depth 32 -----------------------------------------------------
     seconds32 = DEPTH32_SAMPLES / RATE
@@ -2500,6 +2609,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "film_batch": film_line(film["deposit"]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

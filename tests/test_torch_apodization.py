@@ -3,12 +3,15 @@ plain reference with windows (``benchmark/reference/flac_ref_windows.py``)
 byte for byte on seeded audio at small sizes, the decoder reading the
 streams back sample for sample, the one-window default path against the
 JAX package, the window search's counter and tally, and the setting's
-refusals.
+refusals; and the ``film-5.1-48k-24bit`` configuration's settings (flac -8
+on 24-bit / 48 kHz independent channels): its encoder block, the reference's
+bytes at 3, 6 and 8 channels, the frame header's codes and its control.
 
 Tolerance: exact equality of bytes, samples and integers."""
 
 import importlib.util
 import io
+import json
 import sys
 from pathlib import Path
 
@@ -33,6 +36,8 @@ CD8 = dict(block_size=4096, prediction="lpc", channels="stereo_auto", max_rice_o
            max_rice_param=30, lpc_order=12, lpc_precision=12)
 HIRES = dict(block_size=4096, prediction="lpc", channels="stereo_auto", max_rice_order=5,
              max_rice_param=30, lpc_order=8, lpc_precision=15)
+FILM_CONFIG = json.loads((ROOT / "benchmark" / "configs" / "film-5.1-48k-24bit.json").read_text())
+FILM = FILM_CONFIG["encoder"]
 
 
 def _reference():
@@ -89,17 +94,68 @@ def test_port_matches_the_reference(cd_pcm, apodization):
     assert back.md5_ok and np.array_equal(back.samples, cd_pcm)
 
 
+def _film_pcm(channels):
+    """24-bit channels of two 4096-sample blocks and a 777-sample tail: per
+    channel a tone that swells and is cut off inside blocks, over noise of
+    its own; channel 3 (the LFE of 5.1) constant where there are four or
+    more."""
+    n = 2 * 4096 + 777
+    rng = np.random.default_rng(0xF11 + channels)
+    t = np.arange(n)
+    env = np.where((t % 4096 < 1500) | (t % 5000 > 4300), 0.05, 1.0) * (1 + t / n)
+    x = np.stack([2.2e6 * 0.85 ** c * env * np.sin(2 * np.pi * (97 + 61 * c) * t / 48000 + c)
+                  + rng.normal(0, 400 * (c + 1), n) for c in range(channels)])
+    if channels >= 4:
+        x[3] = -70_000
+    return np.clip(np.round(x), -(1 << 23), (1 << 23) - 1).astype(np.int32)
+
+
 @pytest.mark.parametrize("kind,n,channels", [("noise", 2 * 4096 + 13, 2), ("quiet_noise", 4096 + 700, 2),
-                                             ("alternating", 4096 + 5, 2), ("mixed", 2 * 4096 + 100, 1)])
+                                             ("alternating", 4096 + 5, 2), ("mixed", 2 * 4096 + 100, 1),
+                                             *(("film", 2 * 4096 + 777, c) for c in (3, 6, 8))])
 def test_whole_list_matches_the_reference_on_other_content(kind, n, channels):
     """Verbatim and escaped partitions, tiny residuals, a 5-sample tail (no
-    LPC below 13 samples) and independent channels, under the six windows."""
-    pcm = make_signal(np.random.default_rng(n), n, channels, 16, kind)
-    fields = dict(CD8, apodization=FLAC8, channels="stereo_auto" if channels == 2 else 1)
-    got, ref = _encode_both(pcm, 44100, 16, fields)
+    LPC below 13 samples) and independent channels, under the six windows;
+    and the film settings (24-bit / 48 kHz, 15-bit coefficients) on 3, 6
+    and 8 independent channels, one of them constant."""
+    if kind == "film":
+        pcm, rate, depth, fields = _film_pcm(channels), 48000, 24, dict(FILM, channels=channels)
+    else:
+        pcm, rate, depth = make_signal(np.random.default_rng(n), n, channels, 16, kind), 44100, 16
+        fields = dict(CD8, apodization=FLAC8, channels="stereo_auto" if channels == 2 else 1)
+    got, ref = _encode_both(pcm, rate, depth, fields)
     assert got == ref
     back = zt.decode_flac(got, device="cpu")
     assert back.md5_ok and np.array_equal(back.samples, pcm)
+    assert (back.info.sample_rate, back.info.bit_depth) == (rate, depth)
+
+
+def test_film_configuration_is_accepted():
+    cfg = zt.EncoderConfig(**FILM)
+    assert cfg.num_channels == 6 and not cfg.stereo_auto
+    assert (cfg.lpc_order, cfg.lpc_precision, cfg.max_rice_order) == (12, 15, 6)
+    assert len(windows_of(cfg)) == 6
+    assert FILM_CONFIG["format"] == {"sample_rate": 48000, "bit_depth": 24, "channels": 6}
+
+
+def test_film_frame_header_codes_and_control():
+    """The first frame of the 5.1 stream: rate code 10 (48 kHz), channel code 5
+    (six independent channels, FL FR FC LFE BL/SL BR/SR), 24 bits; the
+    configuration's control (the first window alone) writes other bytes."""
+    pcm = _film_pcm(6)
+    six = zt.encode_wav_bytes(_wav(pcm, 48000, 24), zt.EncoderConfig(**FILM), device="cpu")
+    pos = 4  # past fLaC and the metadata blocks
+    while True:
+        last, size = six[pos] & 0x80, int.from_bytes(six[pos + 1 : pos + 4], "big")
+        pos += 4 + size
+        if last:
+            break
+    assert six[pos : pos + 2] == b"\xff\xf8"
+    assert six[pos + 2] & 0x0F == 10
+    assert six[pos + 3] >> 4 == 5 and (six[pos + 3] >> 1) & 7 == 6
+    control = zt.EncoderConfig(**dict(FILM, **FILM_CONFIG["control"]))
+    one = zt.encode_wav_bytes(_wav(pcm, 48000, 24), control, device="cpu")
+    assert six != one and len(six) <= len(one)
 
 
 def test_window_list_changes_the_stream(cd_pcm):

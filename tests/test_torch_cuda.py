@@ -60,13 +60,13 @@ def test_kernel_matches_plain(rng, n, s, max_nbv, gap, junk, budget):
     torch.testing.assert_close(got, deposit.deposit_words_plain(*args, W), rtol=0, atol=0)
 
 
-def _wav(rng, n, channels=2, depth=16):
+def _wav(rng, n, channels=2, depth=16, rate=44100):
     t = np.arange(n)
-    x = 0.3 * (1 << (depth - 1)) * np.sin(2 * np.pi * 440 * t / 44100)
+    x = 0.3 * (1 << (depth - 1)) * np.sin(2 * np.pi * 440 * t / rate)
     x = x + rng.normal(0, 1 << (depth - 8), (channels, n))
     lim = 1 << (depth - 1)
     buf = io.BytesIO()
-    write_wav(buf, np.clip(np.round(x), -lim, lim - 1).astype(np.int64), 44100, depth)
+    write_wav(buf, np.clip(np.round(x), -lim, lim - 1).astype(np.int64), rate, depth)
     return buf.getvalue()
 
 
@@ -928,6 +928,37 @@ def test_lpc_encode_through_the_lag_kernel_equals_cpu(rng, fields):
     assert (lpc.LAG_KERNEL_LAUNCHES, lpc.PLAIN_CALLS) == (2, 0)
     assert counts["lpc.lag_kernel_evals"] == counts["lpc.window_evals"] > 0
     assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=cfg, device="cpu")
+
+
+FILM = dict(FLAC8, channels=6, lpc_precision=15)
+
+
+def test_film_batch_on_card_equals_cpu_through_global_rows(rng):
+    """The film-5.1-48k-24bit settings (six independent 24-bit channels at
+    48 kHz, flac -8's six windows at order 12, 15-bit coefficients) on the
+    card: the CPU's bytes through the card-fed route, and every deposit
+    launch's rows over the kernel's shared-memory row (the global-memory
+    branch: ~95 KB a 4096-sample frame, ~70 KB the 3,000-sample tail's); a
+    CD stereo encode takes that branch in no launch."""
+    from zigflac_tpu_torch.utils import stages
+
+    film = _wav(rng, 3 * 4096 + 3000, 6, 24, 48000)
+    cd = _wav(rng, 3 * 4096 + 1000, 2, 16)
+    cfg = EncoderConfig(**FILM)
+    counts = []
+    for wav, c in ((film, cfg), (cd, EncoderConfig())):
+        deposit.reset_counts()
+        stages.COUNTS = {}
+        try:
+            got = zigflac_tpu_torch.encode_wav_bytes(wav, config=c, device="cuda")
+        finally:
+            counts.append((deposit.KERNEL_LAUNCHES, deposit.GLOBAL_ROW_LAUNCHES, stages.COUNTS))
+            stages.COUNTS = None
+        assert got == zigflac_tpu_torch.encode_wav_bytes(wav, config=c, device="cpu")
+    (film_k, film_g, film_c), (cd_k, cd_g, _) = counts
+    assert film_g == film_k > 0
+    assert film_c["pipeline.frames_unpacked"] == film_c["pipeline.frames_encoded"] > 0
+    assert cd_k > 0 and cd_g == 0
 
 
 # -- the frame symbols kernel ----------------------------------------------------------
